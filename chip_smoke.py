@@ -7,21 +7,30 @@
 Phases, in order (any failure exits non-zero before the last line):
 
 1. card name and power limit (nvidia-smi), torch.version.cuda, nvcc version;
-2. build every CUDA kernel of the port from csrc/ (nvcc, all in parallel);
-3. kernel vs plain torch version on the card, at the main path's shapes
-   (inputs taken from the bench scene's rect scene and a random state):
-   the nearest row gather bit-equal at masked-on coordinates (f32 and
-   int32 words, with and without tile masks), the fused window cost within
-   1e-3 abs at covered pixels for K in {1, 4, R} at box 11 / inc 2 and at
-   the cull box 9 / inc 4;
-4. the main path: compute_depthmap on the 640x480, 7-camera bench scene
-   (rect path, one pyramid level, two-stage cull, cull_view_stride 2),
-   median relative depth error < 5e-3 on [16:-16, 16:-16], every kernel's
-   launch count > 0 in that run, write_outputs' seven artifacts;
-5. timings, one JSON line each: the warm main path's wall time, a
-   profiled run's device time by kernel, and each kernel's, its plain
-   version's and the library call's device time per call (CUDA-graph
-   replay between CUDA events, so host dispatch is outside the span);
+2. build every CUDA kernel of the port from csrc/ (nvcc, one process per
+   source, all started together);
+3. kernel vs plain torch version on the card, at the main paths' shapes
+   (inputs taken from the bench scene's rect and exact scenes and a
+   random state): the nearest row gather bit-equal at masked-on
+   coordinates (f32 and int32 words, with and without tile masks), the
+   fused window cost within 1e-3 abs at covered pixels for K in {1, 4, R}
+   at box 11 / inc 2 and at the cull box 9 / inc 4, the bilinear sampler
+   bit-equal on view 0 at the propagation sweep's K=4 candidates x 36
+   window offsets, some coordinates pushed 20 px outside the image;
+4. three paths on the 640x480, 7-camera bench scene, each driven through
+   compute_depthmap with the kernel counts set to 0 just before and read
+   just after, each held to median relative depth error < 5e-3 on
+   [16:-16, 16:-16] and to a launch count > 0 for every kernel it runs:
+   (rect) the rect path at one pyramid level (two-stage cull,
+   cull_view_stride 2), with write_outputs' seven artifacts;
+   (exact) the exact cost path at one level, 8 iterations (the sampler);
+   (pyramid) bench.py's default schedule: rect, 3 levels, fine-level
+   trims, pyramid_coarse_box 7 (the gather and the fused cost);
+5. timings, one JSON line each: each path's warm run wall time, and a
+   profiled run's device busy share and device time by kernel; each
+   kernel's, its plain version's and the library call's device time per
+   call (CUDA-graph replay between CUDA events, so host dispatch is
+   outside the span) beside its bound;
 6. the `kernels` JSON line, the card line, and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -44,6 +53,15 @@ sys.path.insert(0, HERE)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 FLOP_PER_SAMPLE = 20.0
+
+# Port kernel -> the symbol of its __global__ function.
+KERNEL_SYMBOLS = {"row_gather_nearest": "row_gather_nearest_kernel",
+                  "sdg_fused_cost": "sdg_fused_kernel",
+                  "bilinear_sample": "bilinear_sample_kernel"}
+# The kernels each path runs.
+PATH_KERNELS = {"rect": ("row_gather_nearest", "sdg_fused_cost"),
+                "exact": ("bilinear_sample",),
+                "pyramid": ("row_gather_nearest", "sdg_fused_cost")}
 
 
 def log(*a):
@@ -75,8 +93,11 @@ def nvcc_version() -> str:
 
 
 def scene_setup():
-    """The bench scene and the slice's configuration (bench.py
-    --schedule reference at one pyramid level)."""
+    """The bench scene and the three paths' configurations: bench.py's
+    (rect, two-stage cull, cull_view_stride 2) at one pyramid level
+    (`--schedule reference`), the same on the exact cost path, and
+    bench.py's default 3-level pyramid.  Depth range [3, 8] and angles
+    [0.01, 60] keep all six source views."""
     from gipuma_tpu_torch.config import PRESETS
     from gipuma_tpu_torch.utils.synthetic import make_ring_P, plane_scene
     n, h, w, f = 7, 480, 640, 800.0
@@ -84,11 +105,20 @@ def scene_setup():
                                      plane_depth=5.0, slant=(0.2, -0.1),
                                      texture="noise")
     Ps = make_ring_P(n, h, w, f, target_depth=5.0)
-    params = PRESETS["middlebury"].replace(
-        seed=0, cost_path="rect", pyramid_levels=1,
-        rect_two_stage_cull=True, cull_view_stride=2,
-        depth_min=3.0, depth_max=8.0, min_angle=0.01, max_angle=60.0)
-    return images, rig, gt, Ps, params
+    base = PRESETS["middlebury"].replace(
+        seed=0, depth_min=3.0, depth_max=8.0, min_angle=0.01,
+        max_angle=60.0)
+    rect = base.replace(cost_path="rect", pyramid_levels=1,
+                        rect_two_stage_cull=True, cull_view_stride=2)
+    paths = {
+        "rect": rect,
+        "exact": base.replace(cost_path="exact", pyramid_levels=1),
+        "pyramid": rect.replace(
+            pyramid_levels=3, pyramid_fine_iterations=1,
+            pyramid_fine_far=False, pyramid_fine_refine_rounds=2,
+            pyramid_carry_cost=True, pyramid_coarse_box=7),
+    }
+    return images, rig, gt, Ps, paths
 
 
 def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -143,12 +173,12 @@ def masked_equal(got, want, tile_ok, what):
     return err
 
 
-def profile_main_path(torch, job, card, run_s):
-    """One more run of the main path under torch.profiler: device time by
-    kernel name, and the device's busy share of an unprofiled run's wall
-    time `run_s` (the profiler's own overhead stretches the profiled
-    wall several-fold, so that share is printed too but not used).
-    Returns {port kernel: (device ms, launches)} of that run."""
+def profile_path(torch, job, card, run_s, label):
+    """One more run of a path under torch.profiler: device time by kernel
+    name, and the device's busy share of an unprofiled run's wall time
+    `run_s` (the profiler's own overhead stretches the profiled wall
+    several-fold, so that share is printed too but not used).  Returns
+    {port kernel: (device ms, launches)} of that run."""
     from torch.profiler import ProfilerActivity, profile
     from gipuma_tpu_torch.pipeline import run_prepared_job
     torch.cuda.synchronize()
@@ -172,17 +202,16 @@ def profile_main_path(torch, job, card, run_s):
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
     port = {}
-    for name, sym in (("row_gather_nearest", "row_gather_nearest_kernel"),
-                      ("sdg_fused_cost", "sdg_fused_kernel")):
-        hit = [(us, c) for us, k, c in rows if sym in k]
+    for name in PATH_KERNELS[label]:
+        hit = [(us, c) for us, k, c in rows if KERNEL_SYMBOLS[name] in k]
         port[name] = (sum(us for us, _ in hit) / 1e3,
                       sum(c for _, c in hit))
     if dev_total <= 0:
-        log(json.dumps({"metric": "main_path_profile", "card": card,
-                        "device_time": "not measured"}))
+        log(json.dumps({"metric": "path_profile", "path": label,
+                        "card": card, "device_time": "not measured"}))
         return {}
     log(json.dumps({
-        "metric": "main_path_profile", "card": card,
+        "metric": "path_profile", "path": label, "card": card,
         "wall_s_profiled": wall, "device_s": dev_total / 1e6,
         "busy_share_of_profiled_wall": dev_total / 1e6 / wall,
         "busy_share_of_unprofiled_run": dev_total / 1e6 / run_s,
@@ -204,16 +233,22 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this run needs the card",
              2)
     try:
+        import numpy as np
         import gipuma_tpu_torch
         from gipuma_tpu_torch import kernels
+        from gipuma_tpu_torch.ops import checkerboard as cb
+        from gipuma_tpu_torch.ops import cost as ec
         from gipuma_tpu_torch.ops import rect_cost as rc
         from gipuma_tpu_torch.ops.permute2d import permute2d
         from gipuma_tpu_torch.ops.rowgather import (row_gather_nearest_cuda,
                                                     row_gather_nearest_plain)
+        from gipuma_tpu_torch.ops.sampling import (bilinear_sample_cuda,
+                                                   bilinear_sample_plain)
         from gipuma_tpu_torch.ops.sdg_fused import (
             fused_sdg_cost_batch_cuda, fused_sdg_cost_batch_plain,
             window_geometry)
         from gipuma_tpu_torch.pipeline import (compute_depthmap, prepare_job,
+                                               run_prepared_job,
                                                write_outputs)
         from gipuma_tpu_torch.models.patchmatch import (init_state,
                                                         make_generator)
@@ -246,22 +281,30 @@ def main() -> int:
     for name in kernels.SOURCES:
         kernels.library(name)
 
-    # ---- scene of the main path ------------------------------------------
-    images, rig, gt, Ps, params = scene_setup()
-    t0 = time.perf_counter()
-    job = prepare_job(images, Ps, params, device=device)
-    prep_s = time.perf_counter() - t0
+    # ---- scenes of the paths ---------------------------------------------
+    images, rig, gt, Ps, paths = scene_setup()
+    params = paths["rect"]
+    jobs, prep_s = {}, {}
+    for label in ("rect", "exact"):
+        t0 = time.perf_counter()
+        jobs[label] = prepare_job(images, Ps, paths[label], device=device)
+        prep_s[label] = time.perf_counter() - t0
+    job = jobs["rect"]
     scene, jparams = job.prep, job.params
     log(f"scene: {scene.num_views} views, rect {tuple(scene.ref_rect.shape)}"
         f", S {scene.fwd_c1.shape[-2]}, rot {scene.rotations()}, "
-        f"prep {prep_s:.2f} s")
+        f"prep {prep_s['rect']:.2f} s; exact scene src "
+        f"{tuple(jobs['exact'].prep.src.shape)}, prep "
+        f"{prep_s['exact']:.2f} s")
 
     # ---- 3. kernels vs plain versions at main-path shapes ----------------
     gen = make_generator(0, device)
+
+    def zero_cost(s, p, par, n, d):
+        return torch.zeros(n.shape[:2], device=device)
+
     with torch.no_grad():
-        st = init_state(scene, jparams,  gen,
-                        cost_fn=lambda s, p, par, n, d: torch.zeros(
-                            n.shape[:2], device=device))
+        st = init_state(scene, jparams, gen, cost_fn=zero_cost)
     h, w = st.cost.shape
     n_full = st.planes[..., :3]
     d_full = st.planes[..., 3]
@@ -273,7 +316,6 @@ def main() -> int:
     def m_words(K, pack):
         """Forward-permute input of K candidates (parity 0 active pixels,
         the same plane jittered per candidate): [CH, S, S] rotated."""
-        from gipuma_tpu_torch.ops import checkerboard as cb
         n0 = cb.extract(n_full, 0)
         d0 = cb.extract(d_full, 0)
         g2 = make_generator(K, device)
@@ -374,28 +416,67 @@ def main() -> int:
         if not err <= 1e-3:
             fail(f"sdg_fused_cost differs from its plain version: {what} "
                  f"max abs diff {err}")
+
+    log("kernel vs plain: bilinear_sample")
+    xs, xp = jobs["exact"].prep, jobs["exact"].params
+    with torch.no_grad():
+        st_x = init_state(xs, xp, make_generator(1, device),
+                          cost_fn=zero_cost)
+    # The close propagation sweep's four candidates of parity 0: view 0's
+    # positions at every window offset, [4 * 36, 480, 320].
+    eo = cb.PaddedEO.build(st_x.planes, 1, 3)
+    cand = torch.stack([eo.shifted(dy, dx, 0)
+                        for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1))])
+    offs = ec.window_offsets(xp)
+    sx, sy = ec.warped_coords(xs, v0, ec._plane_terms(
+        xs, 0, cand[..., :3], cand[..., 3]), offs)
+    xH, xW = xs.src.shape[-2:]
+    sx[:, :, :8] = -20.0                       # 20 px outside the image
+    sx[:, :, -8:] = xW - 1 + 20.0
+    sy[:, :8] = -20.0
+    sy[:, -8:] = xH - 1 + 20.0
+    s_src = xs.src[v0]
+    want = bilinear_sample_plain(s_src, sx, sy)
+    got = bilinear_sample_cuda(s_src, sx, sy)
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    differ = int(((got != want) & ~both_nan).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    max_err_sample = float((got - want).abs()[fin].max()) \
+        if bool(fin.any()) else 0.0
+    log(f"  src {tuple(s_src.shape)}, coords {tuple(sx.shape)} "
+        f"({len(offs)} offsets x 4 candidates): {got.numel()} values "
+        f"({sx.numel()} positions x {s_src.shape[0]} channels), {differ} "
+        f"differ, max |diff| {max_err_sample:.3g}")
+    if differ:
+        fail(f"bilinear_sample differs from its plain version: {differ} "
+             f"samples, max abs diff {max_err_sample}")
+    del want, got, both_nan, fin
     torch.cuda.synchronize()
 
-    # ---- 4. the main path ---------------------------------------------------
-    log("main path: compute_depthmap")
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    res = compute_depthmap(images, Ps, params, device=device)
-    e2e_s = time.perf_counter() - t0
-    launches = dict(kernels.counts)
+    # ---- 4. the paths -----------------------------------------------------
     interior = (slice(16, -16), slice(16, -16))
-    err = abs(res.depth[interior] - gt[interior]) / gt[interior]
-    import numpy as np
-    med = float(np.median(err))
-    log(f"  median rel depth err {med:.5f} (gate < 5e-3), run "
-        f"{res.runtime_s:.3f} s, end to end {e2e_s:.3f} s, launches "
-        f"{launches}")
-    if not (np.isfinite(res.depth).all() and res.depth.shape == gt.shape):
-        fail("depth map not finite or of the wrong shape")
-    if not med < 5e-3:
-        fail(f"quality gate: median rel depth err {med}")
-    if not all(v > 0 for v in launches.values()):
-        fail(f"a kernel of the main path was never launched: {launches}")
+    runs = {}
+    for label in ("rect", "exact", "pyramid"):
+        log(f"path {label}: compute_depthmap")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = compute_depthmap(images, Ps, paths[label], device=device)
+        e2e_s = time.perf_counter() - t0
+        launches = dict(kernels.counts)
+        err = abs(res.depth[interior] - gt[interior]) / gt[interior]
+        med = float(np.median(err))
+        log(f"  median rel depth err {med:.5f} (gate < 5e-3), run "
+            f"{res.runtime_s:.3f} s, end to end {e2e_s:.3f} s, launches "
+            f"{launches}")
+        if not (np.isfinite(res.depth).all() and res.depth.shape == gt.shape):
+            fail(f"{label}: depth map not finite or of the wrong shape")
+        if not med < 5e-3:
+            fail(f"{label}: quality gate: median rel depth err {med}")
+        missing = [k for k in PATH_KERNELS[label] if launches[k] <= 0]
+        if missing:
+            fail(f"{label}: kernels of the path never launched: {missing}")
+        runs[label] = dict(med=med, e2e_s=e2e_s, launches=launches, res=res)
+    res = runs["rect"]["res"]
     with tempfile.TemporaryDirectory() as td:
         write_outputs(res, td, params, ref_image=images[0],
                       P_ref=rig.cameras[0].P)
@@ -408,25 +489,38 @@ def main() -> int:
     log(f"  artifacts: {got_files}")
 
     # ---- 5. timings ----------------------------------------------------------
-    # A second, warm run of the main path.
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    from gipuma_tpu_torch.pipeline import run_prepared_job
     t0 = time.perf_counter()
-    res2 = run_prepared_job(job)
-    run_s = time.perf_counter() - t0
+    jobs["pyramid"] = prepare_job(images, Ps, paths["pyramid"],
+                                  device=device)
+    prep_s["pyramid"] = time.perf_counter() - t0
+    prof = {}
     mp = h * w / 1e6
-    log(json.dumps({"metric": "main_path", "card": card,
-                    "e2e_first_s": round(e2e_s, 4), "prep_s": round(prep_s, 4),
-                    "run_s": round(run_s, 4), "runtime_s": res2.runtime_s,
-                    "MP_per_s": mp / res2.runtime_s,
-                    "launches": dict(kernels.counts)}))
+    for label in ("rect", "exact", "pyramid"):
+        # A warm run of the path (the pyramid's first run resolves its
+        # background scene builds; this second one reuses them).
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res2 = run_prepared_job(jobs[label])
+        run_s = time.perf_counter() - t0
+        log(json.dumps({"metric": "path", "path": label, "card": card,
+                        "e2e_first_s": runs[label]["e2e_s"],
+                        "prep_s": prep_s[label], "run_s": run_s,
+                        "runtime_s": res2.runtime_s,
+                        "MP_per_s": mp / res2.runtime_s,
+                        "median_rel_err": runs[label]["med"],
+                        "launches": dict(kernels.counts)}))
+        prof[label] = profile_path(torch, jobs[label], card,
+                                   res2.runtime_s, label)
 
-    prof = profile_main_path(torch, job, card, res2.runtime_s)
-
-    def per_launch_ms(name):
-        ms, n = prof.get(name, (0.0, 0))
+    def per_launch_ms(label, name):
+        ms, n = prof[label].get(name, (0.0, 0))
         return ms / n if n else "not measured"
+
+    launches = {k: runs[p]["launches"][k]
+                for p, k in (("rect", "row_gather_nearest"),
+                             ("rect", "sdg_fused_cost"),
+                             ("exact", "bilinear_sample"))}
 
     gsrc, gx = fwd_src_pair, scene.fwd_c1[v0][None].contiguous()
     gmask = scene.fwd1_ok[v0]
@@ -449,7 +543,8 @@ def main() -> int:
               "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
               "bound_ms": g_bound, "bound_by": "bytes",
               "launches": launches["row_gather_nearest"],
-              "main_path_ms_per_launch": per_launch_ms("row_gather_nearest")}
+              "main_path_ms_per_launch": per_launch_ms(
+                  "rect", "row_gather_nearest")}
     log(json.dumps(g_line))
 
     f_abc = fused_cases[0][2]          # K=1, box 11 / inc 2: the full pass
@@ -472,7 +567,8 @@ def main() -> int:
               "ms": f_ms, "plain_ms": f_plain, "library_ms": None,
               "bound_ms": f_bound, "bound_by": f_by,
               "launches": launches["sdg_fused_cost"],
-              "main_path_ms_per_launch": per_launch_ms("sdg_fused_cost")}
+              "main_path_ms_per_launch": per_launch_ms("rect",
+                                                       "sdg_fused_cost")}
     log(json.dumps(f_line))
     # The sparse screening pass's shape, for the record.
     s_abc = fused_cases[1][2]
@@ -481,6 +577,33 @@ def main() -> int:
     log(json.dumps({"kernel": "sdg_fused_cost", "card": card,
                     "shape": f"K={s_abc.shape[0]} cull box 9/inc 4",
                     "ms": s_ms}))
+
+    # The sampler at the exact path's largest launch: view 0, K=4
+    # propagation candidates x 36 offsets.  Bound: per sample 8 B of
+    # coordinates in and 4*C3 B out, the source read once, at HBM rate.
+    sC3 = s_src.shape[0]
+    n_smp = sx.numel()
+    s_bytes = n_smp * (8 + 4 * sC3) + 4 * s_src.numel()
+    s_bound = s_bytes / HBM_BPS * 1e3
+    s_ms_k = graph_ms(lambda: bilinear_sample_cuda(s_src, sx, sy), reps=10)
+    s_plain = graph_ms(lambda: bilinear_sample_plain(s_src, sx, sy),
+                       reps=3, rounds=3)
+    grid = torch.stack([sx / (xW - 1) * 2 - 1, sy / (xH - 1) * 2 - 1],
+                       dim=-1).reshape(1, -1, sx.shape[-1], 2)
+    s_in = s_src[None]
+    s_lib = graph_ms(lambda: torch.nn.functional.grid_sample(
+        s_in, grid, mode="bilinear", padding_mode="border",
+        align_corners=True), reps=10)
+    del grid
+    s_line = {"kernel": "bilinear_sample", "card": card,
+              "shape": f"src {tuple(s_src.shape)} f32, coords "
+                       f"{tuple(sx.shape)} (K=4 x {len(offs)} offsets)",
+              "ms": s_ms_k, "graph_ms": s_ms_k, "plain_ms": s_plain,
+              "library_ms": s_lib, "bound_ms": s_bound, "bound_by": "bytes",
+              "launches": launches["bilinear_sample"],
+              "main_path_ms_per_launch": per_launch_ms("exact",
+                                                       "bilinear_sample")}
+    log(json.dumps(s_line))
 
     # ---- 6. summary lines -----------------------------------------------
     kernel_rows = [
@@ -497,6 +620,12 @@ def main() -> int:
          "launches": launches["sdg_fused_cost"],
          "max_abs_err": max_err_fused, "ms": f_ms, "plain_ms": f_plain,
          "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
+        {"name": "bilinear_sample", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/sampling.cu",
+         "replaces": "gipuma_tpu/ops/pallas_sampling.py:61",
+         "launches": launches["bilinear_sample"],
+         "max_abs_err": max_err_sample, "ms": s_ms_k, "plain_ms": s_plain,
+         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib},
     ]
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)

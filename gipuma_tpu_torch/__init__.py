@@ -5,11 +5,12 @@ torch tensors on an explicit device, and every TPU kernel of the ported
 path rewritten by hand in CUDA C++ for Hopper (``csrc/``).  It imports
 nothing of JAX and nothing of ``gipuma_tpu``.
 
-This slice carries the rectified PatchMatch path at one pyramid level:
-``pipeline.compute_depthmap`` -> ``models.rect_scene.build_rect_scene`` ->
-the engine in ``models.patchmatch`` with ``ops.rect_cost`` as cost
-function, whose two kernels are the nearest row gather
-(``ops.rowgather``) and the fused window cost (``ops.sdg_fused``).
+``pipeline.compute_depthmap`` runs the engine in ``models.patchmatch`` on
+the exact cost path (``ops.cost``, whose kernel is the bilinear sampler
+``ops.sampling``) or on the rectified path (``models.rect_scene`` and
+``ops.rect_cost``, whose kernels are the nearest row gather
+``ops.rowgather`` and the fused window cost ``ops.sdg_fused``), at one
+resolution or as a coarse-to-fine pyramid (``models.pyramid``).
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ A field-for-field copy of ``gipuma_tpu/config.py`` (the JAX package's
 module imports JAX through its package ``__init__``, so the port keeps its
 own copy).  Every field, default and preset is identical; the port's tests
 hold the two against each other.  Fields that tune only the TPU kernels
-(``fused_roll``, ``fused_block_rows``) are accepted and have no effect on
-the port's output; fields that need a path this port does not have yet
-raise ``NotImplementedError`` in ``pipeline.check_supported``.
+(``fused_roll``, ``fused_block_rows``, ``use_pallas_sampler``) are accepted
+and have no effect on the port's output; fields that need a path the port
+does not have yet raise ``NotImplementedError`` in
+``pipeline.check_supported``.
 
 All defaults mirror the reference defaults exactly.
 """
@@ -102,9 +103,12 @@ class AlgorithmParams:
     seed: int = 0              # replaces curand clock64() seeding — deterministic
     # The fields below select and tune the JAX package's fast paths; the
     # history and the measurements behind each default are in
-    # gipuma_tpu/config.py.  This slice of the port runs the rect path with
-    # pack_taps, window_grads and fused_window_cost on (check_supported).
-    # Sample source views with the exact path's Pallas sampler.
+    # gipuma_tpu/config.py.  The port runs the rect path with pack_taps,
+    # window_grads and fused_window_cost on (check_supported).
+    # The JAX package's choice between two samplers of the exact path (the
+    # Pallas kernel or an XLA gather) that compute the same function.
+    # Accepted; no effect here: the port has one sampler, the CUDA kernel
+    # of ops/sampling.py, whichever is set.
     use_pallas_sampler: bool = False
     # "exact": costs on the original pixel grid; "rect": costs on per-pair
     # epipolar-rectified grids where source sampling is row-aligned.

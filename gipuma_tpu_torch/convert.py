@@ -16,18 +16,23 @@ import torch
 
 from .config import AlgorithmParams, CostCombination, MatchingAlgorithm
 from .models.patchmatch import PMState
+from .ops import checkerboard as cb
 from .ops.cost import ScenePack
 from .ops.rect_cost import RectScene
 
 _ENUMS = {"algorithm": MatchingAlgorithm, "cost_comb": CostCombination}
 
 
+_EO_KEYS = ("E", "O", "pr", "pc", "h", "w2")
+
+
 def to_numpy_tree(obj):
-    """A NamedTuple of arrays (such as the JAX package's RectScene and its
-    ScenePack base) -> nested dict of numpy arrays, by field name.  Leaves
-    that are neither arrays, numbers nor NamedTuples (e.g. padded window
-    helpers of the exact path) are dropped; None stays None.  Works on any
-    array type numpy can read, without importing its library."""
+    """A NamedTuple of arrays (such as the JAX package's ScenePack, or its
+    RectScene with the ScenePack base) -> nested dict of numpy arrays, by
+    field name.  The exact path's padded window helpers (PaddedEO) become
+    dicts of their planes and sizes; None stays None; other leaves are
+    dropped.  Works on any array type numpy can read, without importing
+    its library."""
     out = {}
     for f in obj._fields:
         v = getattr(obj, f)
@@ -35,6 +40,9 @@ def to_numpy_tree(obj):
             out[f] = None
         elif hasattr(v, "_fields"):
             out[f] = to_numpy_tree(v)
+        elif all(hasattr(v, k) for k in _EO_KEYS):
+            out[f] = {k: (np.asarray(getattr(v, k)) if k in ("E", "O")
+                          else int(getattr(v, k))) for k in _EO_KEYS}
         elif hasattr(v, "shape") or isinstance(v, (int, float)):
             out[f] = np.asarray(v)
     return out
@@ -77,16 +85,40 @@ def _tensor(a, device, name):
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
+_EXACT_FIELDS = ("ref_img", "ref_gx", "ref_gy", "src")
+
+
 def scene_pack_from_numpy(tree: Mapping, device="cpu") -> ScenePack:
-    """A dict of numpy arrays keyed by ScenePack field -> ScenePack (extra
-    keys, such as the exact path's sampling arrays, are ignored)."""
+    """A dict of numpy arrays keyed by ScenePack field -> ScenePack.
+
+    The exact path's arrays carry across when the tree has them at full
+    size: the PaddedEO planes (dicts from to_numpy_tree), and ``src``
+    rebuilt from the JAX package's block split ``src_blocks``
+    [V, NB, 3C, H, 128] by joining the blocks and cropping to W.  A lite
+    JAX scene (placeholder arrays there) gives a lite ScenePack; keys of
+    the JAX package's TPU layouts (the 4-tap ``src`` table) are ignored."""
     kw = {}
     for f in ScenePack._fields:
+        if f in _EXACT_FIELDS:
+            continue
         a = np.asarray(tree[f])
         if f in ("row_offset", "global_h"):
             kw[f] = torch.as_tensor(a.astype(np.int32), device=device)
         else:
             kw[f] = _tensor(a, device, f)
+    h, w = kw["rays"].shape[:2]
+    eo = [tree.get(f) for f in ("ref_img", "ref_gx", "ref_gy")]
+    blocks = tree.get("src_blocks")
+    if (all(isinstance(e, Mapping) and e["h"] == h for e in eo)
+            and blocks is not None and np.asarray(blocks).shape[3] == h):
+        for f, e in zip(("ref_img", "ref_gx", "ref_gy"), eo):
+            kw[f] = cb.PaddedEO(
+                E=_tensor(e["E"], device, f), O=_tensor(e["O"], device, f),
+                pr=e["pr"], pc=e["pc"], h=e["h"], w2=e["w2"])
+        b = np.asarray(blocks, np.float32)                 # [V,NB,3C,H,128]
+        V, NB, C3, H, L = b.shape
+        src = np.moveaxis(b, 1, 3).reshape(V, C3, H, NB * L)[..., :w]
+        kw["src"] = torch.as_tensor(np.ascontiguousarray(src), device=device)
     return ScenePack(**kw)
 
 

@@ -28,12 +28,14 @@ BUILD_DIR = _HERE / "build"
 SOURCES = {
     "rowgather": "rowgather.cu",
     "sdg_fused": "sdg_fused.cu",
+    "sampling": "sampling.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0}
+counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
+          "bilinear_sample": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -6,7 +6,9 @@ GPU core, gipuma.cu:996-1960):
 * random plane-field init            — gipuma_init_cu2        (gipuma.cu:996-1051)
 * checkerboard close propagation ±1  — spatialPropClose       (gipuma.cu:1471-1588)
 * checkerboard far propagation ±5    — spatialPropFar         (gipuma.cu:1353-1468)
-* plane refinement, all rounds as one K-candidate batch (config.refine_batched)
+* plane refinement (perturbation)    — planeRefinement_cu     (gipuma.cu:928-994):
+  sequential rounds, or all rounds as one K-candidate batch
+  (config.refine_batched, for cost functions that batch it)
 * iteration schedule black/red x {close, far, refine}          (gipuma.cu:1911-1941)
 * final world-normal / depth output  — gipuma_compute_disp    (gipuma.cu:1080-1103)
 
@@ -90,9 +92,20 @@ def _fold_better(scene, params, parity, x, y, cand_n, cand_d, cand_ok,
     """Accept strictly-better candidates in order (spatialPropagation_cu,
     gipuma.cu:832-874): a candidate replaces the current plane when its
     cost is < the current one AND its depth is inside [depth_min,
-    depth_max]; first-minimum tie-breaking, as in the reference."""
-    ck_all = cost_fn.batch(scene, params, parity, cand_n, cand_d,
-                           cand_ok=cand_ok, cur=(n_now, d_now))
+    depth_max]; first-minimum tie-breaking, as in the reference.
+
+    The candidates' costs do not depend on each other, so they are all
+    evaluated first: in one pass through ``cost_fn.batch`` where the cost
+    function has one (both of the port's do), else one call per
+    candidate."""
+    batch = getattr(cost_fn, "batch", None)
+    if batch is not None:
+        ck_all = batch(scene, params, parity, cand_n, cand_d,
+                       cand_ok=cand_ok, cur=(n_now, d_now))
+    else:
+        ck_all = torch.stack([cost_fn(scene, params, parity, cand_n[k],
+                                      cand_d[k])
+                              for k in range(cand_n.shape[0])])
     depth_all = T.depth_from_plane(cand_n, cand_d, x, y, scene.fx, scene.cx,
                                    scene.cy, scene.alpha_focal)
     for k in range(cand_n.shape[0]):
@@ -154,16 +167,25 @@ def axial_propagation_sweep(state: PMState, scene, params: AlgorithmParams,
 
 def refinement_sweep(state: PMState, scene, params: AlgorithmParams,
                      parity: int, cost_fn, uniforms=None) -> PMState:
-    """Plane refinement: every round of the exponential perturbation
-    schedule (planeRefinement_cu, gipuma.cu:890-994) as ONE K-candidate
-    batch around the sweep's starting state (config.refine_batched).
+    """Plane refinement: the exponential perturbation schedule in disparity
+    space (planeRefinement_cu + getRndDispAndUnitVector_cu,
+    gipuma.cu:890-994).
+
+    With config.refine_batched and a cost function that declares
+    ``batched_refinement`` (the rect cost), every round is one candidate of
+    ONE K-candidate batch around the sweep's starting state.  Otherwise the
+    rounds run in order, each perturbing the plane the round before
+    accepted (the JAX package takes the batched branch only for a cost with
+    a ``.batch``, i.e. the rect cost; the exact cost's ``.batch`` serves
+    propagation only).
 
     uniforms: optional (u [R, H, W2], u_n [R, H, W2, 3]) in [0, 1) used in
-    place of the generator's draws (tests feed the JAX package's draws)."""
-    if not params.refine_batched:
-        raise NotImplementedError(
-            "refine_batched=False (sequential refinement rounds) is a later "
-            "slice of the port")
+    place of the generator's draws, round r reading u[r] and u_n[r] (tests
+    feed the JAX package's draws)."""
+    if not (params.refine_batched
+            and getattr(cost_fn, "batched_refinement", False)):
+        return _refine_sequential(state, scene, params, parity, cost_fn,
+                                  uniforms)
     x, y = _active_coords(scene, parity)
     dev = scene.rays.device
     view_vec = cb.extract(scene.view_vec, parity)
@@ -208,6 +230,54 @@ def refinement_sweep(state: PMState, scene, params: AlgorithmParams,
         n_now = torch.where(accept[..., None], n_new[k], n_now)
         d_now = torch.where(accept, d_new[k], d_now)
         c_now = torch.where(accept, ck_all[k], c_now)
+    return _write_back(state, scene, params, parity, n_now, d_now, c_now)
+
+
+def _refine_sequential(state: PMState, scene, params: AlgorithmParams,
+                       parity: int, cost_fn, uniforms=None) -> PMState:
+    """refinement_sweep's rounds in order (patchmatch.py:333-383 of the JAX
+    package): round r perturbs the current plane by (delta_z, delta_n) of
+    the schedule and keeps it where its cost is strictly lower."""
+    x, y = _active_coords(scene, parity)
+    dev = scene.rays.device
+    view_vec = cb.extract(scene.view_vec, parity)
+    n_now = cb.extract(state.planes[..., :3], parity)
+    d_now = cb.extract(state.planes[..., 3], parity)
+    c_now = cb.extract(state.cost, parity)
+    depth_now = T.depth_from_plane(n_now, d_now, x, y, scene.fx, scene.cx,
+                                   scene.cy, scene.alpha_focal)
+    deltas = torch.tensor(params.refinement_schedule(), dtype=torch.float32,
+                          device=dev)
+    tex_ok = (cb.extract(scene.texture_ok, parity)
+              if params.no_texture_check else None)
+    for r in range(deltas.shape[0]):
+        delta_z, delta_n = deltas[r, 0], deltas[r, 1]
+        if uniforms is None:
+            u = torch.rand(d_now.shape, generator=state.gen, device=dev)
+            u_n = torch.rand(n_now.shape, generator=state.gen, device=dev)
+        else:
+            u, u_n = uniforms[0][r], uniforms[1][r]
+        disp = T.disparity_depth(scene.f, scene.baseline, depth_now)
+        # Perturbation interval limited by the disparity range
+        # (gipuma.cu:906-916).
+        min_delta = -torch.minimum(delta_z, params.min_disparity + disp)
+        max_delta = torch.minimum(delta_z, params.max_disparity - disp)
+        disp_new = disp + min_delta + u * (max_delta - min_delta)
+        disp_new = torch.clamp(disp_new, params.min_disparity,
+                               params.max_disparity)
+        depth_new = T.disparity_depth(scene.f, scene.baseline, disp_new)
+        n_new = T.normalize(n_now + (u_n * 2.0 - 1.0) * delta_n, eps=1e-20)
+        n_new = T.flip_to_hemisphere(n_new, view_vec)
+        d_new = T.plane_d_at_pixel(scene.M_inv, scene.P_col4, n_new, x, y,
+                                   depth_new)
+        c_new = cost_fn(scene, params, parity, n_new, d_new)
+        accept = c_new < c_now
+        if tex_ok is not None:
+            accept = accept & tex_ok
+        n_now = torch.where(accept[..., None], n_new, n_now)
+        d_now = torch.where(accept, d_new, d_now)
+        depth_now = torch.where(accept, depth_new, depth_now)
+        c_now = torch.where(accept, c_new, c_now)
     return _write_back(state, scene, params, parity, n_now, d_now, c_now)
 
 

@@ -1,8 +1,11 @@
 """ScenePack construction: calibration -> device geometry fields.
 
-Counterpart of ``gipuma_tpu/models/scene.py:26-147,150-193`` for the
-rectified path, which reads only the geometry fields (``lite=True`` in the
-JAX package).  The exact path's sampling arrays come with a later slice.
+Counterpart of ``gipuma_tpu/models/scene.py:26-193``.  ``lite=True`` builds
+only the geometry fields (what the rect path reads); ``lite=False`` adds
+the exact cost path's reference windows (PaddedEO of the image and its
+central gradients) and the source views' (image, gx, gy) channels
+[V, 3C, H, W], the sampler's layout.  The JAX package's 4-tap table and
+128-column block split are TPU gather layouts and are not built here.
 """
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ import torch
 from ..config import AlgorithmParams
 from ..geometry import transforms as T
 from ..geometry.camera import Rig
+from ..ops import checkerboard as cb
 from ..ops.cost import ScenePack
+from ..ops.sampling import central_gradients
 
 
 def ensure_even_width(img: np.ndarray) -> np.ndarray:
@@ -28,14 +33,13 @@ def ensure_even_width(img: np.ndarray) -> np.ndarray:
 def build_scene(images: Sequence[np.ndarray], rig: Rig,
                 view_subset: Sequence[int], params: AlgorithmParams,
                 depth_min: float, depth_max: float,
-                lite: bool = True, device="cpu") -> ScenePack:
-    """Geometry of the reference view (index 0) and the selected source
-    views.  Only ``lite=True`` exists in this port: the exact cost path's
-    sampling tables come with a later slice."""
-    if not lite:
-        raise NotImplementedError(
-            "build_scene(lite=False) builds the exact cost path's sampling "
-            "tables; that path is a later slice of the port")
+                lite: bool = False, device="cpu") -> ScenePack:
+    """Pack the reference image (index 0) and the selected source views.
+
+    images: [H, W] or [H, W, C] float arrays (intensity scale 0-255).
+    view_subset: indices into `images` / rig.cameras (excluding 0).
+    lite=True skips the exact path's sampling arrays (those fields stay
+    None); the rect path reads only the geometry fields."""
     ref = np.asarray(images[0], dtype=np.float32)
     if ref.ndim == 2:
         ref = ref[..., None]
@@ -44,6 +48,26 @@ def build_scene(images: Sequence[np.ndarray], rig: Rig,
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+    exact = {}
+    if not lite:
+        pr, pc = params.box_vrad, params.box_hrad + 2
+        ref_j = t(ref)
+        gx, gy = central_gradients(ref_j.permute(2, 0, 1))
+        exact["ref_img"] = cb.PaddedEO.build(ref_j, pr, pc)
+        exact["ref_gx"] = cb.PaddedEO.build(gx.permute(1, 2, 0), pr, pc)
+        exact["ref_gy"] = cb.PaddedEO.build(gy.permute(1, 2, 0), pr, pc)
+        src = []
+        for v in view_subset:
+            img = np.asarray(images[v], dtype=np.float32)
+            if img.ndim == 2:
+                img = img[..., None]
+            assert img.shape[:2] == (h, w), \
+                "all views must share the image size"
+            chw = t(img).permute(2, 0, 1)
+            vgx, vgy = central_gradients(chw)
+            src.append(torch.cat([chw, vgx, vgy], dim=0))
+        exact["src"] = torch.stack(src).contiguous()     # [V, 3C, H, W]
 
     A_list, b_list = [], []
     for v in view_subset:
@@ -73,6 +97,7 @@ def build_scene(images: Sequence[np.ndarray], rig: Rig,
                     else torch.ones((h, w), dtype=torch.bool, device=device)),
         row_offset=torch.tensor(0, dtype=torch.int32, device=device),
         global_h=torch.tensor(h, dtype=torch.int32, device=device),
+        **exact,
     )
 
 
@@ -108,5 +133,6 @@ def pad_scene_views(scene: ScenePack, multiple: int) -> ScenePack:
 
     return scene._replace(
         A=pad0(scene.A), b=pad0(scene.b),
+        src=None if scene.src is None else pad0(scene.src),
         view_valid=torch.cat([scene.view_valid,
                               scene.view_valid.new_zeros(pad)]))

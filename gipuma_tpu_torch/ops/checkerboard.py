@@ -58,6 +58,7 @@ class PaddedEO:
     def __init__(self, E, O, pr: int, pc: int, h: int, w2: int):
         self.E, self.O = E, O
         self.pr, self.pc, self.h, self.w2 = pr, pc, h, w2
+        self._windows: dict = {}
 
     @staticmethod
     def build(a: torch.Tensor, pr: int, pc: int) -> "PaddedEO":
@@ -84,3 +85,16 @@ class PaddedEO:
 
         b0, b1 = plane(0), plane(1)
         return torch.where(_rp(b0, parity) == 0, b0, b1)
+
+    def windows(self, offsets, parity: int) -> torch.Tensor:
+        """[O, H, W2(, C)]: ``shifted(dy, dx, parity)`` for each (dx, dy)
+        of `offsets`, stacked.  Kept per (offsets, parity): the exact cost
+        reads the same reference windows in every evaluation of a run
+        (the JAX package re-slices them inside its offset scan)."""
+        key = (tuple(offsets), int(parity))
+        win = self._windows.get(key)
+        if win is None:
+            win = torch.stack([self.shifted(dy, dx, parity)
+                               for dx, dy in offsets])
+            self._windows[key] = win
+        return win

@@ -424,3 +424,7 @@ def rect_multiview_cost_batch(scene: RectScene, params: AlgorithmParams,
 # The engine (models/patchmatch._fold_better) uses the `batch` attribute to
 # evaluate all propagation candidates in one pass.
 rect_multiview_cost.batch = rect_multiview_cost_batch
+# ... and, under config.refine_batched, all refinement rounds of a sweep in
+# one batch (models/patchmatch.refinement_sweep), as the JAX package does
+# for this cost.
+rect_multiview_cost.batched_refinement = True

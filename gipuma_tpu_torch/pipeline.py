@@ -1,14 +1,17 @@
 """End-to-end depth-map pipeline — the runGipuma analog (main.cpp:694-1199).
 
-Counterpart of ``gipuma_tpu/pipeline.py:73-243`` for the rectified path at
-one pyramid level: select views, build the rect scene, run PatchMatch,
-finalize, write outputs (dmb/ply/png + results.txt).
+Counterpart of ``gipuma_tpu/pipeline.py:73-243``: select views, build the
+scene (the rectified path, or the exact path — the default, and the
+fallback where the rig cannot be rectified — or a coarse-to-fine pyramid
+of either), run PatchMatch, finalize, write outputs (dmb/ply/png +
+results.txt).
 
 Entry points run on the card: ``device=None`` means ``cuda``, and raises
 when CUDA is absent.  Pass ``device="cpu"`` to run the plain versions of
-the kernels on the CPU.  Settings that need a path this slice of the port
-does not have raise NotImplementedError (``check_supported``); nothing
-falls back silently.
+the kernels on the CPU.  Settings that need a path the port does not have
+yet raise NotImplementedError (``check_supported``); the one fallback is
+the JAX package's own, rect to exact where the rig cannot be rectified,
+and it prints a line.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .io import vis as vis_io
 from .io.ply import write_ply
 from .models.patchmatch import finalize, make_generator, run_patchmatch
 from .models.scene import build_scene, ensure_even_width
+from .ops.cost import multiview_cost
 from .select import select_views
 
 
@@ -47,35 +51,32 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-# (condition, what it needs) for every setting this slice cannot run.
+# (condition, what it needs) for every setting the port cannot run yet.
+# The rect-only settings are checked when the rect path is asked for; the
+# exact path ignores them, as in the JAX package.
 _LATER = [
-    (lambda p: p.cost_path != "rect",
-     "the exact cost path (cost_path='exact') is the next slice"),
-    (lambda p: p.pyramid_levels > 1,
-     "the pyramid (pyramid_levels > 1) is the next slice"),
-    (lambda p: p.use_pallas_sampler,
-     "the exact path's sampler kernel is the next slice"),
-    (lambda p: p.algorithm == MatchingAlgorithm.CENSUS,
-     "the census rect cost is a later slice"),
-    (lambda p: not (p.pack_taps and p.window_grads and p.fused_window_cost),
+    (lambda p: p.cost_path == "rect"
+     and p.algorithm == MatchingAlgorithm.CENSUS,
+     "the census rect cost is a later slice (census runs on the exact "
+     "path, cost_path='exact')"),
+    (lambda p: p.cost_path == "rect"
+     and not (p.pack_taps and p.window_grads and p.fused_window_cost),
      "the full-channel, grad_fwd and unfused rect paths are a later slice"),
-    (lambda p: p.cull_downscale > 1 and p.rect_two_stage_cull,
+    (lambda p: p.cost_path == "rect"
+     and p.cull_downscale > 1 and p.rect_two_stage_cull,
      "cull_downscale screening scenes are a later slice"),
-    (lambda p: p.rect_quantize_shapes,
+    (lambda p: p.cost_path == "rect" and p.rect_quantize_shapes,
      "rect_quantize_shapes / ShapeBucketLedger are a later slice"),
     (lambda p: p.level_dispatch != "host",
      "level_dispatch='scan' is a later slice"),
     (lambda p: p.propagation_variant != "small",
      "monolithic propagation is a later slice"),
-    (lambda p: not p.refine_batched,
-     "sequential refinement rounds (refine_batched=False) are a later "
-     "slice"),
 ]
 
 
 def check_supported(params: AlgorithmParams) -> None:
     """Raise NotImplementedError, naming the later slice, for settings
-    this slice of the port does not run."""
+    the port does not run yet."""
     for cond, what in _LATER:
         if cond(params):
             raise NotImplementedError(f"gipuma_tpu_torch: {what}")
@@ -95,9 +96,12 @@ class RunResult:
 
 @dataclasses.dataclass
 class PreparedJob:
-    """Host-side plan + device scene for one reference view."""
+    """Host-side plan + device scenes for one reference view.  With the
+    pyramid, `prep` holds the levels' futures (models/pyramid.py), whose
+    builds run on background threads until run_prepared_job resolves
+    them."""
 
-    prep: object                 # the RectScene
+    prep: object                 # pyramid futures, a RectScene or a ScenePack
     params: AlgorithmParams
     view_subset: list[int]
     depth_min: float
@@ -106,6 +110,7 @@ class PreparedJob:
     orig_w: int
     w: int
     device: torch.device = None
+    pyramid: bool = False
 
 
 def prepare_job(images: Sequence[np.ndarray],
@@ -117,9 +122,9 @@ def prepare_job(images: Sequence[np.ndarray],
 
     images/P_matrices are for all cameras; `ref_index` selects the
     reference (swapped to the front internally, main.cpp:409-421).  When
-    the rig cannot be rectified, RectifyUnsupported propagates: the JAX
-    package falls back to the exact path there, which this slice of the
-    port does not have yet."""
+    the rect path is asked for and the rig cannot be rectified, the job
+    falls back to the exact path (with a printed line), as in the JAX
+    package."""
     device = resolve_device(device)
     check_supported(params)
     order = [ref_index] + [i for i in range(len(images)) if i != ref_index]
@@ -141,32 +146,58 @@ def prepare_job(images: Sequence[np.ndarray],
     params = params.with_depth_range(depth_min, depth_max, rig.f,
                                      FAKE_BASELINE)
 
-    from .models.rect_scene import build_rect_scene
-    base = build_scene(images, rig, subset, params, depth_min, depth_max,
-                       lite=True, device=device)
-    scene, _ = build_rect_scene(images, rig, subset, params, depth_min,
-                                depth_max, base=base, device=device)
-    return PreparedJob(prep=scene, params=params, view_subset=subset,
-                       depth_min=depth_min, depth_max=depth_max,
-                       ref_name=names[0], orig_w=orig_w, w=w, device=device)
+    job = dict(params=params, view_subset=subset, depth_min=depth_min,
+               depth_max=depth_max, ref_name=names[0], orig_w=orig_w, w=w,
+               device=device)
+    if params.pyramid_levels > 1:
+        from .models.pyramid import prepare_pyramid
+        prep = prepare_pyramid(images, Ps, names, subset, params, depth_min,
+                               depth_max, lazy=True, device=device)
+        return PreparedJob(prep=prep, pyramid=True, **job)
+
+    with torch.no_grad():
+        scene = None
+        if params.cost_path == "rect":
+            from .models.rect_scene import RectifyUnsupported, build_rect_scene
+            # Lite base: the rect path reads only its geometry fields.
+            base = build_scene(images, rig, subset, params, depth_min,
+                               depth_max, lite=True, device=device)
+            try:
+                scene, _ = build_rect_scene(images, rig, subset, params,
+                                            depth_min, depth_max, base=base,
+                                            device=device)
+            except RectifyUnsupported as e:
+                print(f"[gipuma_tpu_torch] rect path unavailable ({e}); "
+                      "falling back to the exact cost path")
+                job["params"] = params = params.replace(cost_path="exact")
+        if scene is None:
+            scene = build_scene(images, rig, subset, params, depth_min,
+                                depth_max, lite=False, device=device)
+    return PreparedJob(prep=scene, **job)
 
 
 def run_prepared_job(job: PreparedJob) -> RunResult:
     """Run PatchMatch + finalize for a prepared job; returns host arrays."""
-    from .ops.rect_cost import rect_multiview_cost
     params = job.params
-    scene = job.prep
-    device = job.device or scene.ref_rect.device
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        gen = make_generator(params.seed, device)
-        state = run_patchmatch(scene, params, gen,
-                               cost_fn=rect_multiview_cost)
-        depth, normals, cost = finalize(state, scene)
-        depth = depth.cpu().numpy()
-    runtime = time.perf_counter() - t0
-    normals = normals.cpu().numpy()
-    cost = cost.cpu().numpy()
+    gen = make_generator(params.seed, job.device)
+    if job.pyramid:
+        from .models.pyramid import run_pyramid
+        t0 = time.perf_counter()
+        depth, normals, cost = run_pyramid(job.prep, gen)
+        runtime = time.perf_counter() - t0
+    else:
+        if params.cost_path == "rect":
+            from .ops.rect_cost import rect_multiview_cost as cost_fn
+        else:
+            cost_fn = multiview_cost
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            state = run_patchmatch(job.prep, params, gen, cost_fn=cost_fn)
+            depth, normals, cost = finalize(state, job.prep)
+            depth = depth.cpu().numpy()
+        runtime = time.perf_counter() - t0
+        normals = normals.cpu().numpy()
+        cost = cost.cpu().numpy()
     if job.w != job.orig_w:  # crop the even-width padding
         depth = depth[:, :job.orig_w]
         normals = normals[:, :job.orig_w]

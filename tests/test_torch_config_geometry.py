@@ -239,6 +239,8 @@ def test_build_scene_geometry_matches(no_texture_check):
                             params_from_dict(dataclasses.asdict(p)),
                             3.0, 8.0, lite=True)
     for f in ts._fields:
+        if getattr(ts, f) is None:      # the exact path's fields (lite)
+            continue
         np.testing.assert_allclose(np.asarray(getattr(js, f)),
                                    getattr(ts, f).numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=f)

@@ -6,13 +6,15 @@ nothing of JAX, so it also runs where JAX is not installed:
 
 Tolerances: the nearest gather is bit-equal at masked-on coordinates; the
 fused window cost agrees to 1e-3 abs at covered pixels (the plain version
-rounds the weight and the window sums in another order)."""
+rounds the weight and the window sums in another order); the bilinear
+sampler is bit-equal."""
 import numpy as np
 import pytest
 import torch
 
 from gipuma_tpu_torch.config import AlgorithmParams
 from gipuma_tpu_torch.ops import rowgather as trg
+from gipuma_tpu_torch.ops import sampling as tsm
 from gipuma_tpu_torch.ops import sdg_fused as tsf
 
 pytestmark = pytest.mark.cuda
@@ -78,3 +80,20 @@ def test_fused_kernel_matches_plain(cuda_device, C, K, box, inc, onesided):
     cov[32:] = False
     cov[:, 256:] = False
     assert torch.equal(got_m[:, cov], got[:, cov])
+
+
+@pytest.mark.parametrize("C", [1, 3, 9])
+def test_sampler_kernel_matches_plain(cuda_device, C):
+    """Bit-equal: the kernel rounds each product and sum on its own, in the
+    plain version's order; coordinates reach 20 px outside the image, and a
+    NaN coordinate gives NaN, as in the plain version."""
+    g = torch.Generator().manual_seed(C)
+    src = torch.rand((C, 48, 200), generator=g) * 255
+    x = torch.rand((3, 40, 96), generator=g) * 240 - 20
+    y = torch.rand((3, 40, 96), generator=g) * 88 - 20
+    x[1, 2, 3] = float("nan")
+    src, x, y = src.to(cuda_device), x.to(cuda_device), y.to(cuda_device)
+    want = tsm.bilinear_sample_plain(src, x, y)
+    got = tsm.bilinear_sample_cuda(src, x, y)
+    assert torch.isnan(got[1, :, 2, 3]).all()
+    assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
