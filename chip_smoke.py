@@ -16,16 +16,30 @@ Phases, in order (any failure exits non-zero before the last line):
    fused window cost within 1e-3 abs at covered pixels for K in {1, 4, R}
    at box 11 / inc 2 and at the cull box 9 / inc 4, the bilinear sampler
    bit-equal on view 0 at the propagation sweep's K=4 candidates x 36
-   window offsets, some coordinates pushed 20 px outside the image;
-4. three paths on the 640x480, 7-camera bench scene, each driven through
+   window offsets, some coordinates pushed 20 px outside the image; the
+   lerp row gather bit-equal in its f32, PACKED and GFWD modes on view 0
+   of the f32, full and gfwd scenes (K=4 candidates at the window corner),
+   and the affine row gather bit-equal at the census path's largest row
+   launch (K=4 x 11 columns), both with NaN positions and positions 20 px
+   outside [0, W-1];
+4. nine paths on the 640x480, 7-camera bench scene, each driven through
    compute_depthmap with the kernel counts set to 0 just before and read
-   just after, each held to median relative depth error < 5e-3 on
-   [16:-16, 16:-16] and to a launch count > 0 for every kernel it runs:
+   just after, each held to a launch count > 0 for every kernel it runs
+   and to finite depth, and all but gfwd and census to median relative
+   depth error < 5e-3 on [16:-16, 16:-16]:
    (rect) the rect path at one pyramid level (two-stage cull,
    cull_view_stride 2), with write_outputs' seven artifacts;
    (exact) the exact cost path at one level, 8 iterations (the sampler);
    (pyramid) bench.py's default schedule: rect, 3 levels, fine-level
    trims, pyramid_coarse_box 7 (the gather and the fused cost);
+   (census_exact) census on the exact path, the census formula on the
+   original grid (the sampler); (census) rect with -a ct, the CLI's
+   `-a ct --cost_path rect` (the affine gather), held to 2.5x
+   census_exact's error instead of 5e-3 (RELATIVE_GATES); (unfused) rect
+   with fused_window_cost off (the affine gather); (full, gfwd, f32) the
+   full-channel, grad_fwd and f32-tap rect layouts at 4 iterations (the
+   lerp gather; gfwd prints its error only: gipuma_tpu/config.py records
+   salt-noise failures of that layout at native sampling);
 5. timings, one JSON line each: each path's warm run wall time, and a
    profiled run's device busy share and device time by kernel; each
    kernel's, its plain version's and the library call's device time per
@@ -57,15 +71,44 @@ FLOP_PER_SAMPLE = 20.0
 # Port kernel -> the symbol of its __global__ function.
 KERNEL_SYMBOLS = {"row_gather_nearest": "row_gather_nearest_kernel",
                   "sdg_fused_cost": "sdg_fused_kernel",
-                  "bilinear_sample": "bilinear_sample_kernel"}
+                  "bilinear_sample": "bilinear_sample_kernel",
+                  "row_gather_lerp": "row_gather_lerp_kernel",
+                  "row_gather_affine": "row_gather_affine_kernel"}
 # The kernels each path runs.
 PATH_KERNELS = {"rect": ("row_gather_nearest", "sdg_fused_cost"),
                 "exact": ("bilinear_sample",),
-                "pyramid": ("row_gather_nearest", "sdg_fused_cost")}
+                "pyramid": ("row_gather_nearest", "sdg_fused_cost"),
+                "census_exact": ("bilinear_sample",),
+                "census": ("row_gather_nearest", "row_gather_affine"),
+                "unfused": ("row_gather_nearest", "row_gather_affine"),
+                "full": ("row_gather_nearest", "row_gather_lerp"),
+                "gfwd": ("row_gather_nearest", "row_gather_lerp"),
+                "f32": ("row_gather_nearest", "row_gather_lerp")}
+# Paths whose median error is printed but not gated: grad_fwd's in-cell
+# gradient is out of phase at native sampling (gipuma_tpu/config.py).
+UNGATED = ("gfwd",)
+# Paths held to a multiple of another path's median error instead of 5e-3:
+# the rect census against the census formula on the original grid (the
+# exact path's census, run just before it).  On this pixel-noise scene the
+# rect census resamples both images and misses 5e-3 while the exact
+# census makes it (PERF.md, Findings); the multiple catches a fault of the
+# port's rect census without holding the layout to what it cannot reach.
+RELATIVE_GATES = {"census": ("census_exact", 2.5)}
+# Iterations of the full, gfwd and f32 layouts (one lerp launch per window
+# offset, view and evaluation: the slowest paths of the script).
+LAYOUT_ITERATIONS = 4
+
+
+_T0 = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(what: str) -> None:
+    """A phase line with the seconds since the script started."""
+    log(f"[{time.perf_counter() - _T0:.1f} s] {what}")
 
 
 def fail(msg: str, code: int = 1):
@@ -93,12 +136,13 @@ def nvcc_version() -> str:
 
 
 def scene_setup():
-    """The bench scene and the three paths' configurations: bench.py's
-    (rect, two-stage cull, cull_view_stride 2) at one pyramid level
-    (`--schedule reference`), the same on the exact cost path, and
-    bench.py's default 3-level pyramid.  Depth range [3, 8] and angles
-    [0.01, 60] keep all six source views."""
-    from gipuma_tpu_torch.config import PRESETS
+    """The bench scene and the paths' configurations: bench.py's (rect,
+    two-stage cull, cull_view_stride 2) at one pyramid level (`--schedule
+    reference`), the same on the exact cost path, bench.py's default
+    3-level pyramid, and the rect path's other costs and layouts: census,
+    the unfused window_grads cost, full channels, grad_fwd and f32 taps.
+    Depth range [3, 8] and angles [0.01, 60] keep all six source views."""
+    from gipuma_tpu_torch.config import PRESETS, MatchingAlgorithm
     from gipuma_tpu_torch.utils.synthetic import make_ring_P, plane_scene
     n, h, w, f = 7, 480, 640, 800.0
     images, rig, gt, _ = plane_scene(num_cams=n, h=h, w=w, focal=f,
@@ -117,6 +161,17 @@ def scene_setup():
             pyramid_levels=3, pyramid_fine_iterations=1,
             pyramid_fine_far=False, pyramid_fine_refine_rounds=2,
             pyramid_carry_cost=True, pyramid_coarse_box=7),
+        # The census cost's reference formula on the original grid: what
+        # the rect census is compared with.
+        "census_exact": base.replace(cost_path="exact", pyramid_levels=1,
+                                     algorithm=MatchingAlgorithm.CENSUS),
+        "census": rect.replace(algorithm=MatchingAlgorithm.CENSUS),
+        "unfused": rect.replace(fused_window_cost=False),
+        "full": rect.replace(window_grads=False,
+                             iterations=LAYOUT_ITERATIONS),
+        "gfwd": rect.replace(window_grads=False, grad_fwd_pack=True,
+                             iterations=LAYOUT_ITERATIONS),
+        "f32": rect.replace(pack_taps=False, iterations=LAYOUT_ITERATIONS),
     }
     return images, rig, gt, Ps, paths
 
@@ -152,6 +207,23 @@ def graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
+def bit_equal(got, want, what, name):
+    """Bit-equality of two float32 tensors, NaN at the same places.
+    Returns the largest |difference| of the finite values (0 = equal)."""
+    torch = sys.modules["torch"]
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    same = bool(torch.equal(nan_g, nan_w)) and bool(torch.equal(
+        got.nan_to_num(-1.0).view(torch.int32),
+        want.nan_to_num(-1.0).view(torch.int32)))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want).abs()[fin].max()) if bool(fin.any()) else 0.0
+    log(f"  {what}: {got.numel()} values ({int(nan_w.sum())} NaN), "
+        f"{'bit-equal' if same else 'DIFFER'}, max |diff| {err:.3g}")
+    if not same:
+        fail(f"{name} differs from its plain version: {what}")
+    return err
+
+
 def masked_equal(got, want, tile_ok, what):
     """Bit-equality of two [B, C, H, Ws] 32-bit tensors on the pixels of
     masked-on [8, 128] tiles (all pixels without a mask)."""
@@ -174,33 +246,34 @@ def masked_equal(got, want, tile_ok, what):
 
 
 def profile_path(torch, job, card, run_s, label):
-    """One more run of a path under torch.profiler: device time by kernel
-    name, and the device's busy share of an unprofiled run's wall time
-    `run_s` (the profiler's own overhead stretches the profiled wall
-    several-fold, so that share is printed too but not used).  Returns
-    {port kernel: (device ms, launches)} of that run."""
+    """One more run of a path under torch.profiler, recording the device's
+    activity only: device time by kernel name, and the device's busy share
+    of an unprofiled run's wall time `run_s` (the profiler's own overhead
+    stretches the profiled wall, so that share is printed too but not
+    used).  The device events are summed straight from the profiler's raw
+    events: key_averages() post-processes every event in Python, minutes
+    for a run of 10^5 launches.  Returns {port kernel: (device ms,
+    launches)} of that run."""
     from torch.profiler import ProfilerActivity, profile
     from gipuma_tpu_torch.pipeline import run_prepared_job
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_prepared_job(job)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = []
-    dev_total = 0.0
-    for ev in prof.key_averages():
-        # Device-side events only (kernels, memcpy/memset): CPU ops also
-        # carry their kernels' time, which would count it twice.
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        # Device-side events only (kernels, memcpy/memset).
+        if not str(ev.device_type()).endswith("CUDA"):
             continue
-        us = float(getattr(ev, "self_device_time_total", 0.0)
-                   or getattr(ev, "self_cuda_time_total", 0.0) or 0.0)
+        us = ev.duration_ns() / 1e3
         if us > 0:
-            dev_total += us
-            rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
+            tot, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (tot + us, n + 1)
+    rows = sorted(((us, k, c) for k, (us, c) in by_name.items()),
+                  reverse=True)
+    dev_total = sum(us for us, _, _ in rows)
     port = {}
     for name in PATH_KERNELS[label]:
         hit = [(us, c) for us, k, c in rows if KERNEL_SYMBOLS[name] in k]
@@ -240,8 +313,10 @@ def main() -> int:
         from gipuma_tpu_torch.ops import cost as ec
         from gipuma_tpu_torch.ops import rect_cost as rc
         from gipuma_tpu_torch.ops.permute2d import permute2d
-        from gipuma_tpu_torch.ops.rowgather import (row_gather_nearest_cuda,
-                                                    row_gather_nearest_plain)
+        from gipuma_tpu_torch.ops.rowgather import (
+            row_gather_affine_cuda, row_gather_affine_plain,
+            row_gather_lerp_cuda, row_gather_lerp_plain,
+            row_gather_nearest_cuda, row_gather_nearest_plain)
         from gipuma_tpu_torch.ops.sampling import (bilinear_sample_cuda,
                                                    bilinear_sample_plain)
         from gipuma_tpu_torch.ops.sdg_fused import (
@@ -270,6 +345,7 @@ def main() -> int:
     log(f"nvcc: {nvcc_version()}")
 
     # ---- 2. build ---------------------------------------------------------
+    stamp("build")
     t0 = time.perf_counter()
     secs = kernels.build()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
@@ -282,6 +358,7 @@ def main() -> int:
         kernels.library(name)
 
     # ---- scenes of the paths ---------------------------------------------
+    stamp("scenes")
     images, rig, gt, Ps, paths = scene_setup()
     params = paths["rect"]
     jobs, prep_s = {}, {}
@@ -298,6 +375,7 @@ def main() -> int:
         f"{prep_s['exact']:.2f} s")
 
     # ---- 3. kernels vs plain versions at main-path shapes ----------------
+    stamp("kernels vs plain versions")
     gen = make_generator(0, device)
 
     def zero_cost(s, p, par, n, d):
@@ -310,10 +388,8 @@ def main() -> int:
     d_full = st.planes[..., 3]
     R = len(jparams.refinement_schedule())
     v0 = 0
-    kv = scene.rotations()[v0]
-    s = scene.fwd_c1.shape[-2]
 
-    def m_words(K, pack):
+    def m_words(K, pack, sc=scene):
         """Forward-permute input of K candidates (parity 0 active pixels,
         the same plane jittered per candidate): [CH, S, S] rotated."""
         n0 = cb.extract(n_full, 0)
@@ -331,8 +407,9 @@ def main() -> int:
             m_ch = rc._pack_m_tri(m_chw)
         else:
             m_ch = m_chw.reshape(3 * K, h, w)
-        rk = torch.rot90(m_ch, kv, dims=(-2, -1))
-        out = rk.new_zeros((rk.shape[0], s, s))
+        rk = torch.rot90(m_ch, sc.rotations()[v0], dims=(-2, -1))
+        s_sq = sc.fwd_c1.shape[-2]
+        out = rk.new_zeros((rk.shape[0], s_sq, s_sq))
         out[:, :rk.shape[-2], :rk.shape[-1]] = rk
         return out.contiguous()
 
@@ -389,14 +466,15 @@ def main() -> int:
                              box_vsize=jparams.cull_box,
                              window_increment=jparams.cull_increment)
 
-    def abc_of(K, pack):
-        mp = m_words(K, pack)
-        m_rect = permute2d(mp, scene.fwd_c1[v0], scene.fwd_r[v0])
+    def abc_of(K, pack, sc=scene):
+        mp = m_words(K, pack, sc)
+        m_rect = permute2d(mp, sc.fwd_c1[v0], sc.fwd_r[v0])
+        hh, ww = sc.ref_rect.shape[-2:]
         if pack == "pair":
-            m_rect = rc._unpack_m(m_rect.reshape(K, 2, hrp, wrp))
+            m_rect = rc._unpack_m(m_rect.reshape(K, 2, hh, ww))
         else:
             m_rect = rc._unpack_m_tri(m_rect, K)
-        return rc._apply_L(scene.L[v0], m_rect).contiguous()
+        return rc._apply_L(sc.L[v0], m_rect).contiguous()
 
     fused_cases = []
     for K in sorted({1, 4, R}):
@@ -453,11 +531,74 @@ def main() -> int:
     del want, got, both_nan, fin
     torch.cuda.synchronize()
 
+    # The lerp gather on view 0 of the full-channel (PACKED), grad_fwd
+    # (PACKED+GFWD) and f32-tap scenes: the K=4 propagation candidates at
+    # the window's corner offset (-5, -5), the row shift done in the
+    # gather; a NaN row and positions 20 px outside [0, W-1] mixed in.
+    log("kernel vs plain: row_gather_lerp")
+    for label in ("full", "gfwd", "f32"):
+        t0 = time.perf_counter()
+        jobs[label] = prepare_job(images, Ps, paths[label], device=device)
+        prep_s[label] = time.perf_counter() - t0
+    corner = -jparams.box_hrad
+    lerp_cases = {}
+    max_err_lerp = 0.0
+    for label, mode in (("f32", "f32"), ("full", "PACKED"),
+                        ("gfwd", "PACKED+GFWD")):
+        sc = jobs[label].prep
+        lsrc = sc.src_rect[v0]
+        lh, lw = lsrc.shape[-2:]
+        a4 = abc_of(4, "tri", sc)
+        lxg = torch.arange(lw, device=device, dtype=torch.float32)[None]
+        lyg = torch.arange(lh, device=device, dtype=torch.float32)[:, None]
+        ldb = sc.disp_bounds[v0]
+        ldisp = (a4[:, 0] * (lxg + corner) + a4[:, 1] * (lyg + corner)
+                 + a4[:, 2])
+        lx = ((lxg + corner) - torch.minimum(torch.maximum(ldisp, ldb[0]),
+                                             ldb[1])).contiguous()
+        lx[0, 0] = float("nan")
+        lx[1, :, :8] = -20.0
+        lx[1, :, -8:] = lw - 1 + 20.0
+        gfwd = mode.endswith("GFWD")
+        want = row_gather_lerp_plain(lsrc, lx, gfwd, corner)
+        got = row_gather_lerp_cuda(lsrc, lx, gfwd, corner)
+        max_err_lerp = max(max_err_lerp, bit_equal(
+            got, want, f"{mode} src {lsrc.dtype} {tuple(lsrc.shape)} -> "
+                       f"{tuple(got.shape)}", "row_gather_lerp"))
+        lerp_cases[label] = (mode, lsrc, lx, gfwd, a4)
+        del want, got
+
+    # The affine gather at the census path's largest row launch: K=4
+    # candidates x the 11 columns of one window row, on view 0's packed
+    # image words; one NaN plane row and planes far outside the clamp,
+    # with the scene's clamp and with an open one.
+    log("kernel vs plain: row_gather_affine")
+    a_src = scene.src_rect[v0]
+    a_abc = abc_of(4, "tri").clone()
+    a_abc[0, 2, 0] = float("nan")
+    a_abc[1, 2, 1, :64] = 1e4
+    a_abc[2, 2, 2, :64] = -1e4
+    a_dxs = tuple(range(-jparams.box_hrad, jparams.box_hrad + 1))
+    a_db_open = torch.tensor([-1e9, 1e9], device=device)
+    max_err_affine = 0.0
+    for what, adb in (("scene clamp", scene.disp_bounds[v0]),
+                      ("open clamp", a_db_open)):
+        want = row_gather_affine_plain(a_src, a_abc, a_dxs, float(corner),
+                                       adb, corner)
+        got = row_gather_affine_cuda(a_src, a_abc, a_dxs, float(corner),
+                                     adb, corner)
+        max_err_affine = max(max_err_affine, bit_equal(
+            got, want, f"K=4 x {len(a_dxs)} columns, {what}, src "
+                       f"{tuple(a_src.shape)} -> {tuple(got.shape)}",
+            "row_gather_affine"))
+        del want, got
+    torch.cuda.synchronize()
+
     # ---- 4. the paths -----------------------------------------------------
     interior = (slice(16, -16), slice(16, -16))
     runs = {}
-    for label in ("rect", "exact", "pyramid"):
-        log(f"path {label}: compute_depthmap")
+    for label in paths:
+        stamp(f"path {label}: compute_depthmap")
         kernels.reset_counts()
         t0 = time.perf_counter()
         res = compute_depthmap(images, Ps, paths[label], device=device)
@@ -465,13 +606,19 @@ def main() -> int:
         launches = dict(kernels.counts)
         err = abs(res.depth[interior] - gt[interior]) / gt[interior]
         med = float(np.median(err))
-        log(f"  median rel depth err {med:.5f} (gate < 5e-3), run "
-            f"{res.runtime_s:.3f} s, end to end {e2e_s:.3f} s, launches "
-            f"{launches}")
+        gate = 5e-3
+        if label in RELATIVE_GATES:
+            ref, factor = RELATIVE_GATES[label]
+            gate = factor * runs[ref]["med"]
+        log(f"  median rel depth err {med:.5f} "
+            f"({'not gated' if label in UNGATED else f'gate < {gate:.3g}'}),"
+            f" run {res.runtime_s:.3f} s, end to end {e2e_s:.3f} s, "
+            f"launches {launches}")
         if not (np.isfinite(res.depth).all() and res.depth.shape == gt.shape):
             fail(f"{label}: depth map not finite or of the wrong shape")
-        if not med < 5e-3:
-            fail(f"{label}: quality gate: median rel depth err {med}")
+        if label not in UNGATED and not med < gate:
+            fail(f"{label}: quality gate: median rel depth err {med} "
+                 f"(gate {gate})")
         missing = [k for k in PATH_KERNELS[label] if launches[k] <= 0]
         if missing:
             fail(f"{label}: kernels of the path never launched: {missing}")
@@ -489,13 +636,14 @@ def main() -> int:
     log(f"  artifacts: {got_files}")
 
     # ---- 5. timings ----------------------------------------------------------
-    t0 = time.perf_counter()
-    jobs["pyramid"] = prepare_job(images, Ps, paths["pyramid"],
-                                  device=device)
-    prep_s["pyramid"] = time.perf_counter() - t0
+    stamp("timings")
+    for label in ("pyramid", "census", "unfused"):
+        t0 = time.perf_counter()
+        jobs[label] = prepare_job(images, Ps, paths[label], device=device)
+        prep_s[label] = time.perf_counter() - t0
     prof = {}
     mp = h * w / 1e6
-    for label in ("rect", "exact", "pyramid"):
+    for label in (lb for lb in paths if lb != "census_exact"):
         # A warm run of the path (the pyramid's first run resolves its
         # background scene builds; this second one reuses them).
         torch.cuda.synchronize()
@@ -512,6 +660,7 @@ def main() -> int:
                         "launches": dict(kernels.counts)}))
         prof[label] = profile_path(torch, jobs[label], card,
                                    res2.runtime_s, label)
+        stamp(f"profiled {label}")
 
     def per_launch_ms(label, name):
         ms, n = prof[label].get(name, (0.0, 0))
@@ -520,7 +669,9 @@ def main() -> int:
     launches = {k: runs[p]["launches"][k]
                 for p, k in (("rect", "row_gather_nearest"),
                              ("rect", "sdg_fused_cost"),
-                             ("exact", "bilinear_sample"))}
+                             ("exact", "bilinear_sample"),
+                             ("f32", "row_gather_lerp"),
+                             ("census", "row_gather_affine"))}
 
     gsrc, gx = fwd_src_pair, scene.fwd_c1[v0][None].contiguous()
     gmask = scene.fwd1_ok[v0]
@@ -605,7 +756,70 @@ def main() -> int:
                                                        "bilinear_sample")}
     log(json.dumps(s_line))
 
+    # The lerp gather in its three modes, at the shapes of the kernel phase.
+    # Bound: each input read once (x, 4 B per position; the source, 4 B per
+    # word) and each output written once (4 B per position and output
+    # channel), at HBM rate; the taps a sample reads again come from
+    # L1/L2.  Library: grid_sample with y on the (shifted) row computes the
+    # f32 mode's function; PACKED / GFWD have none.
+    lerp_lines = {}
+    for label, (mode, lsrc, lx, gfwd, _) in lerp_cases.items():
+        lC, lh, lw = lsrc.shape
+        npos = lx.numel()
+        co = lC + lC // 2 if gfwd else lC
+        l_bytes = npos * (4 + co * 4) + 4 * lsrc.numel()
+        l_ms = graph_ms(lambda: row_gather_lerp_cuda(lsrc, lx, gfwd, corner))
+        l_plain = graph_ms(lambda: row_gather_lerp_plain(lsrc, lx, gfwd,
+                                                         corner),
+                           reps=3, rounds=3)
+        l_lib = None
+        if mode == "f32":
+            rows = (torch.arange(lh, device=device) + corner).clamp(0, lh - 1)
+            gy = (rows.to(torch.float32) / (lh - 1) * 2 - 1)[None, :, None]
+            lgrid = torch.stack([lx / (lw - 1) * 2 - 1,
+                                 gy.expand_as(lx)], dim=-1).contiguous()
+            lin = lsrc[None].expand(lx.shape[0], lC, lh, lw).contiguous()
+            l_lib = graph_ms(lambda: torch.nn.functional.grid_sample(
+                lin, lgrid, mode="bilinear", padding_mode="border",
+                align_corners=True), reps=10)
+            del lgrid, lin
+        lerp_lines[label] = {
+            "kernel": "row_gather_lerp", "mode": mode, "card": card,
+            "shape": f"src {tuple(lsrc.shape)} {lsrc.dtype}, x "
+                     f"{tuple(lx.shape)}",
+            "ms": l_ms, "plain_ms": l_plain, "library_ms": l_lib,
+            "bound_ms": l_bytes / HBM_BPS * 1e3, "bound_by": "bytes",
+            "launches": runs[label]["launches"]["row_gather_lerp"],
+            "main_path_ms_per_launch": per_launch_ms(label,
+                                                     "row_gather_lerp")}
+        log(json.dumps(lerp_lines[label]))
+
+    # The affine gather at the census path's largest row launch.  Bound:
+    # abc 12 B per (k, pixel), 4 B out per (k, e, c, pixel), the source
+    # once, at HBM rate; no library call computes it.
+    aK, _, ah, aw = a_abc.shape
+    aC = a_src.shape[0]
+    a_bytes = (12 * aK * ah * aw + 4 * aK * len(a_dxs) * aC * ah * aw
+               + 4 * a_src.numel())
+    a_db = scene.disp_bounds[v0]
+    a_ms = graph_ms(lambda: row_gather_affine_cuda(
+        a_src, a_abc, a_dxs, float(corner), a_db, corner))
+    a_plain = graph_ms(lambda: row_gather_affine_plain(
+        a_src, a_abc, a_dxs, float(corner), a_db, corner), reps=3, rounds=3)
+    a_line = {"kernel": "row_gather_affine", "card": card,
+              "shape": f"src {tuple(a_src.shape)} int32, abc "
+                       f"{tuple(a_abc.shape)}, {len(a_dxs)} columns",
+              "ms": a_ms, "plain_ms": a_plain, "library_ms": None,
+              "bound_ms": a_bytes / HBM_BPS * 1e3, "bound_by": "bytes",
+              "launches": launches["row_gather_affine"],
+              "launches_unfused": runs["unfused"]["launches"][
+                  "row_gather_affine"],
+              "main_path_ms_per_launch": per_launch_ms("census",
+                                                       "row_gather_affine")}
+    log(json.dumps(a_line))
+
     # ---- 6. summary lines -----------------------------------------------
+    stamp("summary")
     kernel_rows = [
         {"name": "row_gather_nearest", "route": "cuda",
          "source": "gipuma_tpu_torch/csrc/rowgather.cu",
@@ -626,6 +840,26 @@ def main() -> int:
          "launches": launches["bilinear_sample"],
          "max_abs_err": max_err_sample, "ms": s_ms_k, "plain_ms": s_plain,
          "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib},
+        # The f32 mode, the one a library call computes; every mode's
+        # numbers are in "modes" (and in the row_gather_lerp lines above).
+        {"name": "row_gather_lerp", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/rowgather_lerp.cu",
+         "replaces": "gipuma_tpu/ops/pallas_rowgather.py:40",
+         "launches": launches["row_gather_lerp"],
+         "max_abs_err": max_err_lerp, "ms": lerp_lines["f32"]["ms"],
+         "plain_ms": lerp_lines["f32"]["plain_ms"],
+         "bound_ms": lerp_lines["f32"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": lerp_lines["f32"]["library_ms"],
+         "modes": {ln["mode"]: {k: ln[k] for k in (
+             "launches", "ms", "plain_ms", "bound_ms", "library_ms")}
+             for ln in lerp_lines.values()}},
+        {"name": "row_gather_affine", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/rowgather_affine.cu",
+         "replaces": "gipuma_tpu/ops/pallas_rowgather.py:331",
+         "launches": launches["row_gather_affine"],
+         "max_abs_err": max_err_affine, "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": a_line["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)

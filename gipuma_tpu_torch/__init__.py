@@ -8,9 +8,9 @@ nothing of JAX and nothing of ``gipuma_tpu``.
 ``pipeline.compute_depthmap`` runs the engine in ``models.patchmatch`` on
 the exact cost path (``ops.cost``, whose kernel is the bilinear sampler
 ``ops.sampling``) or on the rectified path (``models.rect_scene`` and
-``ops.rect_cost``, whose kernels are the nearest row gather
-``ops.rowgather`` and the fused window cost ``ops.sdg_fused``), at one
-resolution or as a coarse-to-fine pyramid (``models.pyramid``).
+``ops.rect_cost``, whose kernels are the row gathers of ``ops.rowgather``
+— nearest, lerp and affine — and the fused window cost ``ops.sdg_fused``),
+at one resolution or as a coarse-to-fine pyramid (``models.pyramid``).
 """
 from __future__ import annotations
 

@@ -103,8 +103,10 @@ class AlgorithmParams:
     seed: int = 0              # replaces curand clock64() seeding — deterministic
     # The fields below select and tune the JAX package's fast paths; the
     # history and the measurements behind each default are in
-    # gipuma_tpu/config.py.  The port runs the rect path with pack_taps,
-    # window_grads and fused_window_cost on (check_supported).
+    # gipuma_tpu/config.py.  The port runs every rect layout the JAX
+    # package has: window_grads (fused or not), grad_fwd, full channels
+    # and f32 taps, PM or census; what it does not run yet raises in
+    # pipeline.check_supported.
     # The JAX package's choice between two samplers of the exact path (the
     # Pallas kernel or an XLA gather) that compute the same function.
     # Accepted; no effect here: the port has one sampler, the CUDA kernel

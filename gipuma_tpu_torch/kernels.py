@@ -29,13 +29,15 @@ SOURCES = {
     "rowgather": "rowgather.cu",
     "sdg_fused": "sdg_fused.cu",
     "sampling": "sampling.cu",
+    "rowgather_lerp": "rowgather_lerp.cu",
+    "rowgather_affine": "rowgather_affine.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
-          "bilinear_sample": 0}
+          "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

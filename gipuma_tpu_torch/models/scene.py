@@ -33,13 +33,17 @@ def ensure_even_width(img: np.ndarray) -> np.ndarray:
 def build_scene(images: Sequence[np.ndarray], rig: Rig,
                 view_subset: Sequence[int], params: AlgorithmParams,
                 depth_min: float, depth_max: float,
-                lite: bool = False, device="cpu") -> ScenePack:
+                lite: bool = False, device=None) -> ScenePack:
     """Pack the reference image (index 0) and the selected source views.
 
     images: [H, W] or [H, W, C] float arrays (intensity scale 0-255).
     view_subset: indices into `images` / rig.cameras (excluding 0).
     lite=True skips the exact path's sampling arrays (those fields stay
-    None); the rect path reads only the geometry fields."""
+    None); the rect path reads only the geometry fields.  device: None
+    means the card (it raises when CUDA is absent); pass "cpu" explicitly
+    for the CPU."""
+    from ..pipeline import resolve_device
+    device = resolve_device(device)
     ref = np.asarray(images[0], dtype=np.float32)
     if ref.ndim == 2:
         ref = ref[..., None]

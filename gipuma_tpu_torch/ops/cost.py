@@ -88,9 +88,10 @@ def _l1(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _census_bits(center, value, eps):
     """3-way intensity classification (getCTbit_cu, gipuma.cu:362-369):
-    0 if center - value > eps, 2 if value - center > eps, else 1."""
-    return torch.where(center - value > eps, 0,
-                       torch.where(value - center > eps, 2, 1))
+    0 if center - value > eps, 2 if value - center > eps, else 1 (int8)."""
+    one = torch.ones((), dtype=torch.int8, device=value.device)
+    return torch.where(center - value > eps, 0 * one,
+                       torch.where(value - center > eps, 2 * one, one))
 
 
 def window_offsets(params: AlgorithmParams) -> list[tuple[int, int]]:

@@ -202,11 +202,12 @@ def permute2d(x: torch.Tensor, c1: torch.Tensor, r: torch.Tensor,
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]
-    a = row_gather(x.contiguous(), c1.contiguous(),
+    a = row_gather(x.contiguous(), c1.contiguous(), nearest=True,
                    tile_ok=mask1)                             # [C, in_h, out_w]
     a_t = a.transpose(1, 2).contiguous()                      # [C, out_w, in_h]
     r_t = r.t().contiguous()                                  # [out_w, out_h]
-    o_t = row_gather(a_t, r_t, tile_ok=mask2)                 # [C, out_w, out_h]
+    o_t = row_gather(a_t, r_t, nearest=True,
+                     tile_ok=mask2)                           # [C, out_w, out_h]
     out = o_t.transpose(1, 2)
     return out[0] if squeeze else out
 

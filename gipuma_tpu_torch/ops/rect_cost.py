@@ -1,11 +1,15 @@
-"""Rectified-frame multiview cost — the main path's cost function.
+"""Rectified-frame multiview cost — the rect path's cost function.
 
-Counterpart of ``gipuma_tpu/ops/rect_cost.py:180-336,475-1010`` on the
-window_grads path (packed taps, fused window cost).  The PatchMatch state
+Counterpart of ``gipuma_tpu/ops/rect_cost.py``.  The PatchMatch state
 stays on the reference grid; per-candidate plane vectors m = n/d are
 carried to each pair's rect grid, and per-view costs carried back, by
-static 2-pass permutations (ops/permute2d.py, kernel 1); the window cost
-on the rect grid is the fused kernel (ops/sdg_fused.py, kernel 2).
+static 2-pass permutations (ops/permute2d.py, the nearest row gather).
+The window cost on the rect grid follows the scene's layout, as in the
+JAX package: the fused window_grads kernel (ops/sdg_fused.py) on the
+default packed layout, or the unfused window_grads cost and census, whose
+sampled window rows are affine row gathers (ops/rowgather.
+row_gather_affine), or the full-channel, grad_fwd and f32 scans over the
+window offsets, one lerp row gather per offset.
 
 The JAX package scans the view axis with ``lax.scan``; here the view loop
 is a Python loop with one launch of each kernel per pass and view.  Per-
@@ -22,9 +26,11 @@ import torch
 from ..config import MAXCOST, AlgorithmParams, MatchingAlgorithm
 from ..geometry import transforms as T
 from . import checkerboard as cb
-from .cost import ScenePack, combine_view_costs
+from .cost import ScenePack, _census_bits, combine_view_costs
 from .permute2d import permute2d
-from .sdg_fused import _to_i32, fused_sdg_cost_batch
+from .rowgather import _to_i32, row_gather, row_gather_affine, row_gather_batch
+from .sdg_fused import (_clip, fused_sdg_cost_batch, window_geometry,
+                        window_grads_cost)
 
 
 class RectScene(NamedTuple):
@@ -35,7 +41,9 @@ class RectScene(NamedTuple):
 
     base: ScenePack
     ref_rect: torch.Tensor   # [V, 3C, Hrp, Wrp] rect-ref channels
-    src_rect: torch.Tensor   # [V, C, Hrp, Wrp] int32 packed src tap words
+    # src_rect by layout: [V, C] int32 packed image tap words (window_grads),
+    # [V, 2C] packed [img, gy] (grad_fwd), [V, 3C] packed or f32 (full).
+    src_rect: torch.Tensor   # [V, C | 2C | 3C, Hrp, Wrp]
     L: torch.Tensor          # [V, 3, 3]: abc_local = L @ m
     fwd_c1: torch.Tensor     # [V, S, Wrp]  rotated state -> rect, pass 1
     fwd_r: torch.Tensor      # [V, Hrp, Wrp]                         pass 2
@@ -209,23 +217,226 @@ def _unpack_m_tri(mp: torch.Tensor, k: int) -> torch.Tensor:
     return _unpack_f16_pairs(mp, 3 * k).reshape(k, 3, *mp.shape[1:])
 
 
+def _iotas(hr: int, wr: int, dev):
+    """Column and row index grids as float32 [hr, wr]."""
+    xg = torch.arange(wr, device=dev).to(torch.float32)[None, :].expand(hr, wr)
+    yg = torch.arange(hr, device=dev).to(torch.float32)[:, None].expand(hr, wr)
+    return xg, yg
+
+
+def _shift2d(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Edge-replicated integer shift of the last two dims:
+    out[..., y, x] = a[..., clip(y + dy), clip(x + dx)]."""
+    h, w = a.shape[-2:]
+    rows = (torch.arange(h, device=a.device) + dy).clamp(0, h - 1)
+    cols = (torch.arange(w, device=a.device) + dx).clamp(0, w - 1)
+    return a[..., rows, :][..., cols]
+
+
+def _l1(x: torch.Tensor) -> torch.Tensor:
+    """Channel mean of |x| over the channel axis (-3)."""
+    return x.abs().mean(dim=-3)
+
+
+def _row_positions(abc_k, dxs, dy: int, bounds) -> torch.Tensor:
+    """Sample positions of window row dy at column offsets dxs for every
+    candidate, materialized for the lerp gather: x = (j+dx) - disp with
+    disp = a*(j+dx) + (b*(i+dy) + c), clipped to bounds = (lo, hi) when
+    given.  [K*E, Hr, Wr]."""
+    K, _, hr, wr = abc_k.shape
+    xg, yg = _iotas(hr, wr, abc_k.device)
+    dx_e = torch.tensor(dxs, dtype=torch.float32, device=abc_k.device)
+    xse = xg[None, None] + dx_e[None, :, None, None]          # [1, E, hr, wr]
+    disp = (abc_k[:, 0, None] * xse
+            + (abc_k[:, 1] * (yg + float(dy)) + abc_k[:, 2])[:, None])
+    if bounds is not None:
+        disp = _clip(disp, bounds[0], bounds[1])
+    return (xse - disp).reshape(K * len(dxs), hr, wr)
+
+
+def _default_bounds(disp_bounds, dev) -> torch.Tensor:
+    """The clamp of the sampling paths: disp_bounds, or (-1e9, 1e9)."""
+    if disp_bounds is not None:
+        return disp_bounds
+    return torch.tensor([-1e9, 1e9], dtype=torch.float32, device=dev)
+
+
+def rect_window_cost(ref_rect: torch.Tensor, ref_gx: torch.Tensor,
+                     src_rect_chw: torch.Tensor, abc: torch.Tensor,
+                     params: AlgorithmParams) -> torch.Tensor:
+    """Per-pixel window cost on the rectified grid, one hypothesis, with
+    x-gradients only (the JAX package's rect_window_cost): ref_rect,
+    ref_gx [Hr, Wr]; src_rect_chw [2, Hr, Ws] (intensity, x-gradient) f32;
+    abc [Hr, Wr, 3] (disp = a*x + b*y + c).  One lerp gather per window
+    offset.  Returns [Hr, Wr]."""
+    hr, wr = ref_rect.shape
+    xg, yg = _iotas(hr, wr, ref_rect.device)
+    inv_gamma = 1.0 / params.gamma
+    alpha = params.alpha
+    acc = torch.zeros((hr, wr), dtype=torch.float32, device=ref_rect.device)
+    for (dx, dy) in params.window_offsets():
+        ref_i = _shift2d(ref_rect, dy, dx)
+        ref_g = _shift2d(ref_gx, dy, dx)
+        xs = xg + dx
+        ys = yg + dy
+        disp = abc[..., 0] * xs + abc[..., 1] * ys + abc[..., 2]
+        smp = row_gather(src_rect_chw, xs - disp, src_dy=dy)   # [2, Hr, Wr]
+        w = torch.exp(-(ref_i - ref_rect).abs() * inv_gamma)
+        col = torch.clamp((ref_i - smp[0]).abs(), max=params.tau_color)
+        grad = torch.clamp((ref_g - smp[1]).abs() * 0.125,
+                           max=params.tau_gradient)
+        acc = acc + w * ((1.0 - alpha) * col + alpha * grad)
+    return torch.where(torch.isnan(acc) | (acc >= MAXCOST), MAXCOST, acc)
+
+
+def rect_pair_cost(ref_chw, src_chw, abc, params: AlgorithmParams,
+                   disp_bounds=None) -> torch.Tensor:
+    """Window cost of one hypothesis field abc [3, Hr, Wr] on one
+    rectified pair: [Hr, Wr] (rect_pair_cost_batch at K = 1, which
+    computes the same values as the JAX package's single-field scan)."""
+    return rect_pair_cost_batch(ref_chw, src_chw, abc[None], params,
+                                disp_bounds)[0]
+
+
+def _rect_pair_cost_batch_sdg(ref_chw, src_chw, abc_k,
+                              params: AlgorithmParams, disp_bounds=None,
+                              hw_valid=None, tile_ok=None) -> torch.Tensor:
+    """window_grads path: src_chw holds only the image channels ([C]
+    packed tap words, or f32), and both source gradients come from
+    neighbouring window samples (ops/sdg_fused.window_grads_cost).  Packed
+    words with fused_window_cost take the fused kernel; otherwise each
+    sampled window row is one gather launch serving all K candidates x E
+    columns — row_gather_affine for packed words, the lerp gather of
+    materialized positions for f32."""
+    dev = ref_chw.device
+    affine = src_chw.dtype == torch.int32
+    db = _default_bounds(disp_bounds, dev)
+    if affine and params.fused_window_cost:
+        return fused_sdg_cost_batch(ref_chw, src_chw, abc_k, params,
+                                    hw_valid=hw_valid, tile_ok=tile_ok,
+                                    disp_bounds=db)
+    ch, hr, wr = ref_chw.shape
+    K = abc_k.shape[0]
+    _, _, xs_ext, ys_ext = window_geometry(params)
+
+    def gather_row(dy: int) -> torch.Tensor:
+        if affine:
+            smp = row_gather_affine(src_chw, abc_k, xs_ext, float(dy),
+                                    disp_bounds=db, src_dy=dy)
+        else:
+            smp = row_gather_batch(
+                src_chw, _row_positions(abc_k, xs_ext, dy, disp_bounds),
+                src_dy=dy)
+        return smp.reshape(K, len(xs_ext), ch // 3, hr, wr)
+
+    return window_grads_cost(ref_chw, abc_k, params,
+                             [gather_row(int(dy)) for dy in ys_ext])
+
+
+def _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k,
+                                 params: AlgorithmParams,
+                                 disp_bounds=None) -> torch.Tensor:
+    """Census window cost on the rectified grid (the rect path's `-a ct`,
+    censusTransform_Arma_cu, gipuma.cu:362-450): the full window at
+    increment 1, center excluded; the cost is the number of differing
+    3-way sign classes between the reference window (against its center)
+    and the warped source samples (against the warped center), on channel
+    means.  One gather launch per window row serves all K candidates x
+    box_hsize columns, plus one for the warped center: row_gather_affine
+    on packed image words, the lerp gather on an f32 layout.  The counts
+    are whole numbers, so adding a row's columns at once gives the JAX
+    package's per-offset sums exactly."""
+    ch, hr, wr = ref_chw.shape
+    dev = ref_chw.device
+    K = abc_k.shape[0]
+    vr, hrad = params.box_vrad, params.box_hrad
+    eps = params.census_epsilon
+    packed = src_chw.dtype == torch.int32
+    # Image channels only: [C] packed words (window_grads), the first C of
+    # [2C] packed (grad_fwd) or [3C] channel layouts.
+    C = ch // 3
+    src_img = src_chw[:C]
+    ref_mean = ref_chw[:C].mean(dim=0)                          # [Hr, Wr]
+    db = _default_bounds(disp_bounds, dev)
+    xs_all = list(range(-hrad, hrad + 1))
+
+    def gather_row(dy: int, dxs: list) -> torch.Tensor:
+        if packed:
+            smp = row_gather_affine(src_img, abc_k, dxs, float(dy),
+                                    disp_bounds=db, src_dy=dy)
+        else:
+            smp = row_gather_batch(src_img, _row_positions(abc_k, dxs, dy, db),
+                                   src_dy=dy)
+        return smp.reshape(K, len(dxs), C, hr, wr).mean(dim=2)
+
+    # Warped center intensity (censusTransform_Arma_cu:429-430).
+    src_center = gather_row(0, [0])                              # [K, 1, Hr, Wr]
+    rows = torch.arange(hr, device=dev)
+    cols = (torch.arange(wr, device=dev)[None, :]
+            + torch.tensor(xs_all, device=dev)[:, None]).clamp(0, wr - 1)
+    acc = torch.zeros((K, hr, wr), dtype=torch.float32, device=dev)
+    for dy in range(-vr, vr + 1):
+        smp = gather_row(dy, xs_all)                             # [K, E, Hr, Wr]
+        ref_w = ref_mean[(rows + dy).clamp(0, hr - 1)][:, cols]  # [Hr, E, Wr]
+        bit_l = _census_bits(ref_mean, ref_w.permute(1, 0, 2), eps)
+        bit_r = _census_bits(src_center, smp, eps)               # [K, E, Hr, Wr]
+        diff = bit_l[None] != bit_r
+        if dy == 0:
+            diff[:, hrad] = False   # center excluded (gipuma.cu:435-439)
+        acc = acc + diff.sum(dim=1).to(torch.float32)
+    return torch.where(torch.isnan(acc) | (acc >= MAXCOST), MAXCOST, acc)
+
+
 def rect_pair_cost_batch(ref_chw, src_chw, abc_k, params: AlgorithmParams,
-                         disp_bounds, hw_valid=None, tile_ok=None):
+                         disp_bounds=None, hw_valid=None, tile_ok=None
+                         ) -> torch.Tensor:
     """Window cost of K candidate fields on one rectified pair:
-    abc_k [K, 3, Hr, Wr] -> [K, Hr, Wr] (window_grads path: src_chw holds
-    only the packed image tap words; disp_bounds [2] = the disparity clamp
-    on the device).  The other rect cost paths (census, full channels,
-    grad_fwd, unfused) are a later slice of the port."""
-    C = ref_chw.shape[0] // 3
-    if (params.algorithm == MatchingAlgorithm.CENSUS
-            or src_chw.shape[0] != C or src_chw.dtype != torch.int32
-            or not params.fused_window_cost):
-        raise NotImplementedError(
-            "only the packed window_grads fused rect cost is ported; the "
-            "census and non-fused rect paths are a later slice")
-    return fused_sdg_cost_batch(ref_chw, src_chw, abc_k, params,
-                                hw_valid=hw_valid, tile_ok=tile_ok,
-                                disp_bounds=disp_bounds)
+    abc_k [K, 3, Hr, Wr] -> [K, Hr, Wr].
+
+    The layout of src_chw picks the path, as in the JAX package: census
+    (any layout; image channels only); [C] image words — window_grads
+    (fused kernel or unfused gathers); [2C] packed words — grad_fwd; [3C]
+    — full channels, packed or f32.  The last two scan the window offsets,
+    one lerp gather launch per offset serving all K candidates.
+    disp_bounds: float32 [2] disparity clamp on the device (None: no clamp
+    on the scan, (-1e9, 1e9) on the sampled-row paths); hw_valid / tile_ok
+    skip fused-kernel work (outputs there unspecified)."""
+    if params.algorithm == MatchingAlgorithm.CENSUS:
+        return _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k, params,
+                                            disp_bounds)
+    ch, hr, wr = ref_chw.shape
+    C = ch // 3
+    K = abc_k.shape[0]
+    sch = src_chw.shape[0]
+    if sch == C:
+        return _rect_pair_cost_batch_sdg(ref_chw, src_chw, abc_k, params,
+                                         disp_bounds, hw_valid, tile_ok)
+    # [2C] int32 = grad_fwd packing ([img-taps, gy-taps], gx in-kernel).
+    grad_fwd = sch == 2 * C
+    dev = ref_chw.device
+    xg, yg = _iotas(hr, wr, dev)
+    ref_center = ref_chw[:C]
+    inv_gamma = 1.0 / params.gamma
+    alpha = params.alpha
+    a, b, c = abc_k[:, 0], abc_k[:, 1], abc_k[:, 2]
+    acc = torch.zeros((K, hr, wr), dtype=torch.float32, device=dev)
+    for dx, dy in params.window_offsets():
+        ref_w = _shift2d(ref_chw, dy, dx)
+        xs = xg + float(dx)
+        disp = a * xs + b * (yg + float(dy)) + c              # [K, Hr, Wr]
+        if disp_bounds is not None:
+            disp = _clip(disp, disp_bounds[0], disp_bounds[1])
+        smp = row_gather_batch(src_chw, xs - disp, grad_fwd=grad_fwd,
+                               src_dy=dy)                    # [K, 3C, Hr, Wr]
+        w = torch.exp(-_l1(ref_w[:C] - ref_center) * inv_gamma)
+        col = torch.clamp(_l1(ref_w[None, :C] - smp[:, :C]),
+                          max=params.tau_color)
+        grad = torch.clamp(
+            (_l1(ref_w[None, C:2 * C] - smp[:, C:2 * C])
+             + _l1(ref_w[None, 2 * C:] - smp[:, 2 * C:])) * 0.0625,
+            max=params.tau_gradient)
+        acc = acc + w[None] * ((1.0 - alpha) * col + alpha * grad)
+    return torch.where(torch.isnan(acc) | (acc >= MAXCOST), MAXCOST, acc)
 
 
 def _apply_L(Lv: torch.Tensor, m_rect: torch.Tensor) -> torch.Tensor:

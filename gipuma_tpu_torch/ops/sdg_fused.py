@@ -10,10 +10,10 @@ neighbouring window samples (Jacobian-corrected by 1/(1-a), clamped to
 gipuma_tpu/ops/rect_cost.py.
 
 On a CUDA tensor ``fused_sdg_cost_batch`` launches ``csrc/sdg_fused.cu``;
-on a CPU tensor it runs the plain torch version below, a transcription of
-the JAX package's unfused window_grads arithmetic
-(``rect_cost._rect_pair_cost_batch_sdg``) with a plain affine packed-tap
-gather.
+on a CPU tensor it runs the plain torch version below: a plain affine
+packed-tap gather and ``window_grads_cost``, the JAX package's unfused
+window_grads arithmetic (``rect_cost._rect_pair_cost_batch_sdg``), which
+the port's unfused path (``fused_window_cost=False``) shares.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from .. import kernels
 from ..config import MAXCOST
+from .rowgather import _lerp_gather, _lerp_taps
 
 
 def window_geometry(params):
@@ -38,81 +39,51 @@ def window_geometry(params):
             list(range(-vr - inc, vr + inc + 1, inc)))
 
 
-def _to_i32(v: torch.Tensor) -> torch.Tensor:
-    """int64 holding an unsigned 32-bit pattern -> int32 with those bits."""
-    v = v & 0xFFFFFFFF
-    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
-
-
-def unpack_taps(vp: torch.Tensor):
-    """bf16 tap pair (v0 in the high half-word, v1 in the low) of an int32
-    word -> two float32 tensors."""
-    w = vp.to(torch.int64)
-    v0 = _to_i32(w & 0xFFFF0000).view(torch.float32)
-    v1 = _to_i32((w & 0xFFFF) << 16).view(torch.float32)
-    return v0, v1
-
-
 def _clip(v, lo, hi):
     return torch.minimum(torch.maximum(v, lo), hi)
 
 
-def fused_sdg_cost_batch_plain(ref_chw: torch.Tensor,
-                               src_packed: torch.Tensor,
-                               abc_k: torch.Tensor, params,
-                               disp_lo, disp_hi) -> torch.Tensor:
-    """Plain torch version of the fused cost: [K, Hr, Wr].  Every pixel is
-    computed (hw_valid / tile_ok regions are unspecified anyway)."""
+def window_grads_cost(ref_chw: torch.Tensor, abc_k: torch.Tensor, params,
+                      smps) -> torch.Tensor:
+    """The window_grads cost from the sampled window rows: smps[t] is
+    [K, E, C, hr, wr], the samples of window row ys_ext[t] at the columns
+    xs_ext (``window_geometry``).  The arithmetic of the JAX package's
+    unfused path (``rect_cost._rect_pair_cost_batch_sdg``): source
+    gradients from neighbouring samples, Jacobian-corrected by 1/(1-a)
+    (|1-a| >= 0.25) and +b*gx, one-sided and doubled at the window edges
+    under ``sdg_onesided_edges``.  The columns of one window row are
+    computed together; their terms are added one at a time in the JAX
+    package's order.  Returns [K, hr, wr], NaN or >= MAXCOST at MAXCOST."""
     ch, hr, wr = ref_chw.shape
     C = ch // 3
     K = abc_k.shape[0]
     dev = ref_chw.device
-    vr, hrad = params.box_vrad, params.box_hrad
-    inc = params.window_increment
     onesided = params.sdg_onesided_edges
     xs_off, rows_c, xs_ext, ys_ext = window_geometry(params)
-    ncol, E = len(xs_off), len(xs_ext)
-    lo = torch.as_tensor(disp_lo, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(disp_hi, dtype=torch.float32, device=dev)
+    ncol = len(xs_off)
+    nrow = len(ys_ext) - (0 if onesided else 2)
     inv_gamma = 1.0 / params.gamma
     alpha = params.alpha
-    grad_scale = 0.0625 / inc
+    grad_scale = 0.0625 / params.window_increment
 
-    rows = torch.arange(hr, device=dev)
-    cols = torch.arange(wr, device=dev)
-    xg = cols.to(torch.float32)[None, :].expand(hr, wr)
-    yg = rows.to(torch.float32)[:, None].expand(hr, wr)
-
-    a, b, c = abc_k[:, 0], abc_k[:, 1], abc_k[:, 2]          # [K, hr, wr]
-    s1 = 1.0 - a
+    b = abc_k[:, 1]
+    s1 = 1.0 - abc_k[:, 0]
     inv_ax = 1.0 / torch.where(s1.abs() < 0.25,
                                torch.where(s1 < 0.0, -0.25, 0.25), s1)
-    dx_e = torch.arange(xs_ext[0], xs_ext[-1] + 1, inc,
-                        dtype=torch.float32, device=dev)   # xs_ext
-
-    def gather_row(dy: int):
-        """Samples of window row dy: [K, E, C, hr, wr]."""
-        src_rows = src_packed[:, (rows + dy).clamp(0, hr - 1)]  # [C, hr, W]
-        W = src_rows.shape[-1]
-        xse = xg[None, None] + dx_e[None, :, None, None]      # [1, E, hr, wr]
-        disp = a[:, None] * xse + (b * (yg + float(dy)) + c)[:, None]
-        disp = _clip(disp, lo, hi)
-        xx = (xse - disp).clamp(0.0, float(W - 1))            # [K, E, hr, wr]
-        x0i = torch.floor(xx).to(torch.int32).clamp(0, W - 2)
-        fx = (xx - x0i.to(torch.float32)).clamp(0.0, 1.0)
-        idx = x0i.to(torch.int64).reshape(K * E, 1, hr, wr).expand(
-            K * E, C, hr, wr)
-        vp = torch.gather(src_rows[None].expand(K * E, C, hr, W), 3, idx)
-        v0, v1 = unpack_taps(vp)
-        fxe = fx.reshape(K * E, 1, hr, wr)
-        return (v0 * (1 - fxe) + v1 * fxe).reshape(K, E, C, hr, wr)
-
-    smps = [gather_row(int(dy)) for dy in ys_ext]
-    nrow = len(ys_ext) - (0 if onesided else 2)
-
-    def ref_win(dyc: int, dxj: int):
-        return ref_chw[:, (rows + dyc).clamp(0, hr - 1)][
-            :, :, (cols + dxj).clamp(0, wr - 1)]
+    # Sample columns (e, elo, ehi) of each contribution column j, and the
+    # doubling of a one-sided difference.  Index tensors come from arange
+    # (no host-to-device copy, so a CUDA graph can capture this).
+    jj = torch.arange(ncol, device=dev)
+    if onesided:
+        e_t, lo_t, hi_t = jj, (jj - 1).clamp(min=0), (jj + 1).clamp(max=ncol - 1)
+    else:
+        e_t, lo_t, hi_t = jj + 1, jj, jj + 2
+    scx = torch.where(hi_t - lo_t == 1, 2.0, 1.0)
+    gx_scale = (scx[None, :, None, None] * inv_ax[:, None])[:, :, None]
+    rows = torch.arange(hr, device=dev)
+    cols = (torch.arange(wr, device=dev)[None, :]
+            + (jj * params.window_increment + xs_off[0])[:, None]
+            ).clamp(0, wr - 1)
 
     def _l1(x):
         return x.abs().mean(dim=-3)
@@ -128,25 +99,59 @@ def fused_sdg_cost_batch_plain(ref_chw: torch.Tensor,
         smp0 = smps[tlo]
         smp1 = smps[jr + (0 if onesided else 1)]
         smp2 = smps[thi]
+        ref_w = ref_chw[:, (rows + dyc).clamp(0, hr - 1)][:, :, cols]
+        ref_w = ref_w.permute(2, 0, 1, 3)                # [ncol, 3C, hr, wr]
+        img_s = smp1[:, e_t]                             # [K, ncol, C, hr, wr]
+        gx_s = (smp1[:, hi_t] - smp1[:, lo_t]) * gx_scale
+        gy_s = (smp2[:, e_t] - smp0[:, e_t]) * scy + b[:, None, None] * gx_s
+        w = torch.exp(-_l1(ref_w[:, :C] - ref_center) * inv_gamma)
+        col = torch.clamp(_l1(ref_w[None, :, :C] - img_s),
+                          max=params.tau_color)
+        grad = torch.clamp(
+            (_l1(ref_w[None, :, C:2 * C] - gx_s)
+             + _l1(ref_w[None, :, 2 * C:] - gy_s)) * grad_scale,
+            max=params.tau_gradient)
+        term = w[None] * ((1.0 - alpha) * col + alpha * grad)
         for j in range(ncol):
-            if onesided:
-                e, elo, ehi = j, max(j - 1, 0), min(j + 1, ncol - 1)
-            else:
-                e, elo, ehi = j + 1, j, j + 2
-            scx = 2.0 if ehi - elo == 1 else 1.0
-            ref_w = ref_win(dyc, int(xs_off[j]))
-            img_s = smp1[:, e]                               # [K, C, hr, wr]
-            gx_s = (smp1[:, ehi] - smp1[:, elo]) * (scx * inv_ax[:, None])
-            gy_s = (smp2[:, e] - smp0[:, e]) * scy + b[:, None] * gx_s
-            w = torch.exp(-_l1(ref_w[:C] - ref_center) * inv_gamma)
-            col = torch.clamp(_l1(ref_w[None, :C] - img_s),
-                              max=params.tau_color)
-            grad = torch.clamp(
-                (_l1(ref_w[None, C:2 * C] - gx_s)
-                 + _l1(ref_w[None, 2 * C:] - gy_s)) * grad_scale,
-                max=params.tau_gradient)
-            acc = acc + w[None] * ((1.0 - alpha) * col + alpha * grad)
+            acc = acc + term[:, j]
     return torch.where(torch.isnan(acc) | (acc >= MAXCOST), MAXCOST, acc)
+
+
+def fused_sdg_cost_batch_plain(ref_chw: torch.Tensor,
+                               src_packed: torch.Tensor,
+                               abc_k: torch.Tensor, params,
+                               disp_lo, disp_hi) -> torch.Tensor:
+    """Plain torch version of the fused cost: [K, Hr, Wr].  Every pixel is
+    computed (hw_valid / tile_ok regions are unspecified anyway).  Samples
+    take the fused kernel's association a*x + (b*y + c)."""
+    ch, hr, wr = ref_chw.shape
+    C = ch // 3
+    K = abc_k.shape[0]
+    dev = ref_chw.device
+    _, _, xs_ext, ys_ext = window_geometry(params)
+    E = len(xs_ext)
+    lo = torch.as_tensor(disp_lo, dtype=torch.float32, device=dev)
+    hi = torch.as_tensor(disp_hi, dtype=torch.float32, device=dev)
+    rows = torch.arange(hr, device=dev)
+    xg = torch.arange(wr, device=dev).to(torch.float32)[None, :].expand(hr, wr)
+    yg = rows.to(torch.float32)[:, None].expand(hr, wr)
+    a, b, c = abc_k[:, 0], abc_k[:, 1], abc_k[:, 2]          # [K, hr, wr]
+    dx_e = torch.arange(xs_ext[0], xs_ext[-1] + 1, params.window_increment,
+                        dtype=torch.float32, device=dev)      # xs_ext
+
+    def gather_row(dy: int):
+        """Samples of window row dy: [K, E, C, hr, wr]."""
+        src_rows = src_packed[:, (rows + dy).clamp(0, hr - 1)]  # [C, hr, W]
+        W = src_rows.shape[-1]
+        xse = xg[None, None] + dx_e[None, :, None, None]      # [1, E, hr, wr]
+        disp = a[:, None] * xse + (b * (yg + float(dy)) + c)[:, None]
+        x0, fx = _lerp_taps(xse - _clip(disp, lo, hi), W)
+        return _lerp_gather(src_rows, x0.reshape(K * E, hr, wr),
+                            fx.reshape(K * E, hr, wr), False
+                            ).reshape(K, E, C, hr, wr)
+
+    return window_grads_cost(ref_chw, abc_k, params,
+                             [gather_row(int(dy)) for dy in ys_ext])
 
 
 # Register-buffer capacities the CUDA kernel is instantiated for (E <= MAXE).

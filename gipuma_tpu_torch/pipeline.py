@@ -25,7 +25,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .config import AlgorithmParams, MatchingAlgorithm
+from .config import AlgorithmParams
 from .geometry.camera import FAKE_BASELINE, build_rig
 from .io import dmb as dmb_io
 from .io import vis as vis_io
@@ -56,14 +56,8 @@ def resolve_device(device=None) -> torch.device:
 # exact path ignores them, as in the JAX package.
 _LATER = [
     (lambda p: p.cost_path == "rect"
-     and p.algorithm == MatchingAlgorithm.CENSUS,
-     "the census rect cost is a later slice (census runs on the exact "
-     "path, cost_path='exact')"),
-    (lambda p: p.cost_path == "rect"
-     and not (p.pack_taps and p.window_grads and p.fused_window_cost),
-     "the full-channel, grad_fwd and unfused rect paths are a later slice"),
-    (lambda p: p.cost_path == "rect"
-     and p.cull_downscale > 1 and p.rect_two_stage_cull,
+     and p.cull_downscale > 1 and p.rect_two_stage_cull
+     and p.pack_taps and p.window_grads,
      "cull_downscale screening scenes are a later slice"),
     (lambda p: p.cost_path == "rect" and p.rect_quantize_shapes,
      "rect_quantize_shapes / ShapeBucketLedger are a later slice"),

@@ -237,7 +237,7 @@ def test_build_scene_geometry_matches(no_texture_check):
     js = jscene.build_scene(images, rig, [1, 2, 3], p, 3.0, 8.0, lite=True)
     ts = tscene.build_scene(images, rig, [1, 2, 3],
                             params_from_dict(dataclasses.asdict(p)),
-                            3.0, 8.0, lite=True)
+                            3.0, 8.0, lite=True, device="cpu")
     for f in ts._fields:
         if getattr(ts, f) is None:      # the exact path's fields (lite)
             continue

@@ -48,7 +48,7 @@ def setup():
     js = jscene.build_scene(images, rig, [1, 2, 3], jp, 3.0, 8.0)
     tp = params_from_dict(dataclasses.asdict(jp))
     ts = tscene.build_scene(images, rig, [1, 2, 3], tp, 3.0, 8.0,
-                            lite=False)
+                            lite=False, device="cpu")
     return dict(images=images, rig=rig, jp=jp, tp=tp, js=js, ts=ts)
 
 

@@ -7,7 +7,8 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: the nearest gather is bit-equal at masked-on coordinates; the
 fused window cost agrees to 1e-3 abs at covered pixels (the plain version
 rounds the weight and the window sums in another order); the bilinear
-sampler is bit-equal."""
+sampler and the lerp and affine row gathers are bit-equal (NaN where the
+plain version gives NaN)."""
 import numpy as np
 import pytest
 import torch
@@ -97,3 +98,48 @@ def test_sampler_kernel_matches_plain(cuda_device, C):
     got = tsm.bilinear_sample_cuda(src, x, y)
     assert torch.isnan(got[1, :, 2, 3]).all()
     assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
+
+
+def _same(got, want):
+    """Bit-equal, NaN at the same places."""
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        got.nan_to_num(-1.0).view(torch.int32),
+        want.nan_to_num(-1.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["f32", "packed", "gfwd"])
+def test_row_gather_lerp_kernel_matches_plain(cuda_device, mode):
+    g = torch.Generator().manual_seed(3)
+    img = torch.rand((4, 40, 256), generator=g) * 255
+    src = img if mode == "f32" else torch.from_numpy(
+        trg.pack_taps(img.numpy()))
+    x = torch.rand((3, 40, 200), generator=g) * 296 - 20
+    x[1, 2, 3] = float("nan")
+    src, x = src.to(cuda_device), x.to(cuda_device)
+    for src_dy in (0, -3):
+        want = trg.row_gather_lerp_plain(src, x, mode == "gfwd", src_dy)
+        got = trg.row_gather_lerp_cuda(src, x, mode == "gfwd", src_dy)
+        assert got.shape == want.shape == (3, 6 if mode == "gfwd" else 4,
+                                           40, 200)
+        assert torch.isnan(got[1, 0, 2, 3])
+        assert _same(got, want)
+
+
+def test_row_gather_affine_kernel_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    img = torch.rand((2, 40, 256), generator=g) * 255
+    src = torch.from_numpy(trg.pack_taps(img.numpy())).to(cuda_device)
+    abc = torch.empty((2, 3, 40, 200))
+    abc[:, 0] = torch.rand((2, 40, 200), generator=g) * 0.6 - 0.3
+    abc[:, 1] = torch.rand((2, 40, 200), generator=g) * 0.4 - 0.2
+    abc[:, 2] = torch.rand((2, 40, 200), generator=g) * 90 - 30
+    abc[0, 2, 0, :3] = torch.tensor([float("nan"), 400.0, -400.0])
+    abc = abc.to(cuda_device)
+    db = torch.tensor([-10.0, 40.0], device=cuda_device)
+    dxs = tuple(range(-5, 6))
+    for dy in (0, 2, -5):
+        want = trg.row_gather_affine_plain(src, abc, dxs, float(dy), db, dy)
+        got = trg.row_gather_affine_cuda(src, abc, dxs, float(dy), db, dy)
+        assert got.shape == (2 * len(dxs), 2, 40, 200)
+        assert torch.isnan(got[:len(dxs), :, 0, 0]).all()
+        assert _same(got, want)

@@ -7,6 +7,8 @@ output writers against the JAX package.
   (tables, masks and packed source words bitwise; float fields to 1e-6);
 * write_outputs writes the seven artifacts; .dmb/.ply bytes equal the JAX
   writers' for the same result, and the PNGs decode to the same pixels;
+* compute_depthmap through the census and the unfused rect costs passes
+  the same gate; every rect layout passes check_supported;
 * off-slice settings raise NotImplementedError and the entry points do not
   fall back to the CPU silently."""
 import dataclasses
@@ -31,6 +33,7 @@ from gipuma_tpu_torch import pipeline as tpipe
 from gipuma_tpu_torch.convert import params_from_dict
 from gipuma_tpu_torch.io.dmb import read_dmb
 from gipuma_tpu_torch.models.rect_scene import build_rect_scene as t_build
+from gipuma_tpu_torch.models.scene import build_scene
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -135,15 +138,45 @@ def test_build_rect_scene_matches_numpy_warp(monkeypatch):
                                    rtol=1e-5, atol=1e-6, err_msg=f)
 
 
-@pytest.mark.parametrize("kw", [dict(algorithm=MatchingAlgorithm.CENSUS),
+@pytest.mark.parametrize("kw", [dict(cull_downscale=2),
                                 dict(rect_quantize_shapes=True),
-                                dict(fused_window_cost=False),
+                                dict(cull_downscale=4,
+                                     algorithm=MatchingAlgorithm.CENSUS),
                                 dict(propagation_variant="monolithic"),
                                 dict(level_dispatch="scan")])
 def test_off_slice_settings_raise(kw):
     p = _verify_params().replace(**kw)
     with pytest.raises(NotImplementedError):
         tpipe.check_supported(p)
+
+
+# Every rect layout and cost: census, the unfused window_grads cost, full
+# channels, grad_fwd and f32 taps.
+SLICE3 = {"census": dict(algorithm=MatchingAlgorithm.CENSUS),
+          "unfused": dict(fused_window_cost=False),
+          "full": dict(window_grads=False),
+          "gfwd": dict(window_grads=False, grad_fwd_pack=True),
+          "f32": dict(pack_taps=False)}
+
+
+@pytest.mark.parametrize("name", list(SLICE3))
+def test_rect_layouts_supported(name):
+    tpipe.check_supported(_verify_params().replace(**SLICE3[name]))
+
+
+@pytest.mark.parametrize("name,iters", [("census", 4), ("unfused", 3)])
+def test_compute_depthmap_census_and_unfused(name, iters):
+    """compute_depthmap(device="cpu") on the /verify scene through the
+    census and the unfused window_grads rect costs passes the gate."""
+    images, rig, gt, _ = plane_scene(num_cams=5, h=60, w=72, focal=110.0,
+                                     plane_depth=5.0, slant=(0.2, -0.1))
+    Ps = make_ring_P(5, 60, 72, 110.0, target_depth=5.0)
+    params = _verify_params(**SLICE3[name]).replace(iterations=iters)
+    res = tpipe.compute_depthmap(images, Ps, params, device="cpu")
+    assert res.depth.shape == gt.shape and np.isfinite(res.depth).all()
+    i = np.s_[10:-10, 10:-10]
+    err = np.abs(res.depth[i] - gt[i]) / gt[i]
+    assert np.median(err) < 5e-3, np.median(err)
 
 
 def test_entry_points_default_to_the_card():
@@ -153,3 +186,16 @@ def test_entry_points_default_to_the_card():
     Ps = make_ring_P(3, 16, 24, 40.0, target_depth=5.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.compute_depthmap(images, Ps, _verify_params())
+
+
+def test_build_scene_defaults_to_the_card():
+    """models.scene.build_scene, a public entry point, runs on the card
+    unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    images, rig, _, _ = plane_scene(num_cams=3, h=16, w=24, focal=40.0)
+    p = _verify_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_scene(images, rig, [1, 2], p, 3.0, 8.0)
+    s = build_scene(images, rig, [1, 2], p, 3.0, 8.0, device="cpu")
+    assert s.rays.device.type == "cpu"

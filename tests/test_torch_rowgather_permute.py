@@ -85,7 +85,7 @@ def test_row_gather_nearest_bitwise(rng, dtype, masked):
         jnp.asarray(src), jnp.asarray(x), interpret=True, nearest=True,
         tile_ok=None if tm is None else jnp.asarray(tm)))
     got = trg.row_gather_batch(torch.from_numpy(src), torch.from_numpy(x),
-                               tile_ok=None if tm is None
+                               nearest=True, tile_ok=None if tm is None
                                else torch.from_numpy(tm)).numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
     rows = slice(0, 8) if masked else slice(None)

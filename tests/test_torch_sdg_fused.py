@@ -21,6 +21,7 @@ from gipuma_tpu.ops.pallas_rowgather import pack_taps
 from gipuma_tpu.ops.pallas_sdg_fused import fused_sdg_cost_batch as j_fused
 
 from gipuma_tpu_torch.config import AlgorithmParams as TParams
+from gipuma_tpu_torch.ops import rowgather as trg
 from gipuma_tpu_torch.ops import sdg_fused as tsf
 
 REPO = Path(__file__).resolve().parents[1]
@@ -98,7 +99,7 @@ def test_unpack_taps_bitwise():
     w = rng.integers(-2**31, 2**31 - 1, size=(4, 64), dtype=np.int64)
     w = w.astype(np.int32)
     jv0, jv1 = j_unpack_taps(jnp.asarray(w))
-    tv0, tv1 = tsf.unpack_taps(torch.from_numpy(w))
+    tv0, tv1 = trg.unpack_taps(torch.from_numpy(w))
     np.testing.assert_array_equal(np.asarray(jv0).view(np.int32),
                                   tv0.numpy().view(np.int32))
     np.testing.assert_array_equal(np.asarray(jv1).view(np.int32),
