@@ -12,9 +12,13 @@ Phases, in order (any failure exits non-zero before the last line):
 3. kernel vs plain torch version on the card, at the main paths' shapes
    (inputs taken from the bench scene's rect and exact scenes and a
    random state): the nearest row gather bit-equal at masked-on
-   coordinates (f32 and int32 words, with and without tile masks), the
-   fused window cost within 1e-3 abs at covered pixels for K in {1, 4, R}
-   at box 11 / inc 2 and at the cull box 9 / inc 4, the bilinear sampler
+   coordinates (f32 and int32 words, with and without tile masks), on
+   both passes of the forward and return permutations; the one-pass
+   permute2d bit-equal to its plain version at consumed coordinates on
+   the same permutations (and the plain one-pass to the two plain
+   passes); the fused window cost within 1e-3 abs at covered pixels for K
+   in {1, 4, R} at box 11 / inc 2 and at the cull box 9 / inc 4, on every
+   tile (the image borders) and at C=3; the bilinear sampler
    bit-equal on view 0 at the propagation sweep's K=4 candidates x 36
    window offsets, some coordinates pushed 20 px outside the image; the
    lerp row gather bit-equal in its f32, PACKED and GFWD modes on view 0
@@ -25,13 +29,14 @@ Phases, in order (any failure exits non-zero before the last line):
 4. nine paths on the 640x480, 7-camera bench scene, each driven through
    compute_depthmap with the kernel counts set to 0 just before and read
    just after, each held to a launch count > 0 for every kernel it runs
+   (permute2d carries every permutation of the rect-family paths)
    and to finite depth, and all but gfwd and census to median relative
    depth error < 5e-3 on [16:-16, 16:-16]:
    (rect) the rect path at one pyramid level (two-stage cull,
    cull_view_stride 2), with write_outputs' seven artifacts;
    (exact) the exact cost path at one level, 8 iterations (the sampler);
    (pyramid) bench.py's default schedule: rect, 3 levels, fine-level
-   trims, pyramid_coarse_box 7 (the gather and the fused cost);
+   trims, pyramid_coarse_box 7 (permute2d and the fused cost);
    (census_exact) census on the exact path, the census formula on the
    original grid (the sampler); (census) rect with -a ct, the CLI's
    `-a ct --cost_path rect` (the affine gather), held to 2.5x
@@ -44,7 +49,9 @@ Phases, in order (any failure exits non-zero before the last line):
    profiled run's device busy share and device time by kernel; each
    kernel's, its plain version's and the library call's device time per
    call (CUDA-graph replay between CUDA events, so host dispatch is
-   outside the span) beside its bound;
+   outside the span) beside its bound (permute2d also beside the
+   two-pass chain it replaced; the fused cost at the full pass's K=1
+   and the cull pass's K=4 shapes);
 6. the `kernels` JSON line, the card line, and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -66,24 +73,47 @@ sys.path.insert(0, HERE)
 # outside the tensor cores.
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
-FLOP_PER_SAMPLE = 20.0
+# FP32 operations the fused cost needs, counted from its plain version's
+# arithmetic (ops/sdg_fused.window_grads_cost and the sampler above it);
+# a subtraction, product, sum, min / max bound or exp counts one, an
+# absolute value (a free operand modifier on the card) and a select none.
+# Per candidate and pixel: each of the T*E sample positions a*x + (b*y +
+# c), two clips, a subtraction, the tap's floor and fraction (8), with a*x
+# once per column (1) and b*y + c once per row (2); per channel sample the
+# lerp v0 + fx (v1 - v0) (3); the Jacobian 1 / (1 - a) (2).  Per
+# contribution: per channel gx (2), gy (3), the colour term (2) and the
+# two gradient terms (4), less the first of the C-channel sums (2); then
+# the 1/C mean (C > 1), two truncations, the gradient scale, the alpha
+# blend (3), the weight and the sum (8).  Per pixel, once for all K: each
+# of the NROW*NCOL bilateral weights, C differences summed, a scale and
+# one exp (2C + 1).
+OPS_POSITION = 8
+OPS_COLUMN = 1
+OPS_ROW = 2
+OPS_LERP_C = 3
+OPS_CANDIDATE = 2
+OPS_CONTRIB_C = 11
+OPS_CONTRIB = 6
+OPS_WEIGHT_C = 2
+OPS_WEIGHT = 1
 
-# Port kernel -> the symbol of its __global__ function.
+# Port kernel -> the symbol (a prefix) of its __global__ functions.
 KERNEL_SYMBOLS = {"row_gather_nearest": "row_gather_nearest_kernel",
-                  "sdg_fused_cost": "sdg_fused_kernel",
+                  "sdg_fused_cost": "sdg_fused_",
                   "bilinear_sample": "bilinear_sample_kernel",
                   "row_gather_lerp": "row_gather_lerp_kernel",
-                  "row_gather_affine": "row_gather_affine_kernel"}
+                  "row_gather_affine": "row_gather_affine_kernel",
+                  "permute2d": "permute2d_kernel"}
 # The kernels each path runs.
-PATH_KERNELS = {"rect": ("row_gather_nearest", "sdg_fused_cost"),
+PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "exact": ("bilinear_sample",),
-                "pyramid": ("row_gather_nearest", "sdg_fused_cost"),
+                "pyramid": ("permute2d", "sdg_fused_cost"),
                 "census_exact": ("bilinear_sample",),
-                "census": ("row_gather_nearest", "row_gather_affine"),
-                "unfused": ("row_gather_nearest", "row_gather_affine"),
-                "full": ("row_gather_nearest", "row_gather_lerp"),
-                "gfwd": ("row_gather_nearest", "row_gather_lerp"),
-                "f32": ("row_gather_nearest", "row_gather_lerp")}
+                "census": ("permute2d", "row_gather_affine"),
+                "unfused": ("permute2d", "row_gather_affine"),
+                "full": ("permute2d", "row_gather_lerp"),
+                "gfwd": ("permute2d", "row_gather_lerp"),
+                "f32": ("permute2d", "row_gather_lerp")}
 # Paths whose median error is printed but not gated: grad_fwd's in-cell
 # gradient is out of phase at native sampling (gipuma_tpu/config.py).
 UNGATED = ("gfwd",)
@@ -224,7 +254,7 @@ def bit_equal(got, want, what, name):
     return err
 
 
-def masked_equal(got, want, tile_ok, what):
+def masked_equal(got, want, tile_ok, what, name="row_gather_nearest"):
     """Bit-equality of two [B, C, H, Ws] 32-bit tensors on the pixels of
     masked-on [8, 128] tiles (all pixels without a mask)."""
     torch = sys.modules["torch"]
@@ -241,7 +271,7 @@ def masked_equal(got, want, tile_ok, what):
         if g.numel() else 0.0
     log(f"  {what}: {g.numel()} words compared, {bad} differ")
     if bad:
-        fail(f"row_gather_nearest differs from its plain version: {what}")
+        fail(f"{name} differs from its plain version: {what}")
     return err
 
 
@@ -286,6 +316,7 @@ def profile_path(torch, job, card, run_s, label):
     log(json.dumps({
         "metric": "path_profile", "path": label, "card": card,
         "wall_s_profiled": wall, "device_s": dev_total / 1e6,
+        "device_launches": sum(c for _, _, c in rows),
         "busy_share_of_profiled_wall": dev_total / 1e6 / wall,
         "busy_share_of_unprofiled_run": dev_total / 1e6 / run_s,
         "port_kernels": {k: {"device_ms": ms, "launches": n}
@@ -293,6 +324,120 @@ def profile_path(torch, job, card, run_s, label):
         "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                 for us, k, c in rows[:12]]}))
     return port
+
+
+def bench_inputs(torch, scene, jparams, device, v0: int = 0):
+    """View v0's kernel inputs from a random state of the rect scene:
+    m_words(K, pack, sc) is the forward permutation's input of K
+    candidates (parity 0 active pixels, the state's plane jittered per
+    candidate; [CH, S, S], rotated and padded as the cost path does) and
+    abc_of(K, pack, sc) their affine disparity fields on the rect grid,
+    [K, 3, Hr, Wr], through the forward permutation."""
+    from gipuma_tpu_torch.models.patchmatch import init_state, make_generator
+    from gipuma_tpu_torch.ops import checkerboard as cb
+    from gipuma_tpu_torch.ops import rect_cost as rc
+    from gipuma_tpu_torch.ops.permute2d import permute2d
+
+    def zero_cost(s, p, par, n, d):
+        return torch.zeros(n.shape[:2], device=device)
+
+    with torch.no_grad():
+        st = init_state(scene, jparams, make_generator(0, device),
+                        cost_fn=zero_cost)
+    h, w = st.cost.shape
+    n_full = st.planes[..., :3]
+    d_full = st.planes[..., 3]
+
+    def m_words(K, pack, sc=scene):
+        n0 = cb.extract(n_full, 0)
+        d0 = cb.extract(d_full, 0)
+        g2 = make_generator(K, device)
+        jit = 1.0 + 0.01 * torch.randn((K,) + d0.shape, generator=g2,
+                                       device=device)
+        n = n0[None].expand(K, *n0.shape).contiguous()
+        d = d0[None] * jit
+        m = n / d[..., None]
+        m_chw = torch.repeat_interleave(m, 2, dim=2).permute(0, 3, 1, 2)
+        if pack == "pair":
+            m_ch = rc._pack_m(m_chw).reshape(2 * K, h, w)
+        elif pack == "tri":
+            m_ch = rc._pack_m_tri(m_chw)
+        else:
+            m_ch = m_chw.reshape(3 * K, h, w)
+        rk = torch.rot90(m_ch, sc.rotations()[v0], dims=(-2, -1))
+        s_sq = sc.fwd_c1.shape[-2]
+        out = rk.new_zeros((rk.shape[0], s_sq, s_sq))
+        out[:, :rk.shape[-2], :rk.shape[-1]] = rk
+        return out.contiguous()
+
+    def abc_of(K, pack, sc=scene):
+        mp = m_words(K, pack, sc)
+        m_rect = permute2d(mp, sc.fwd_c1[v0], sc.fwd_r[v0])
+        hh, ww = sc.ref_rect.shape[-2:]
+        if pack == "pair":
+            m_rect = rc._unpack_m(m_rect.reshape(K, 2, hh, ww))
+        else:
+            m_rect = rc._unpack_m_tri(m_rect, K)
+        return rc._apply_L(sc.L[v0], m_rect).contiguous()
+
+    return m_words, abc_of
+
+
+def fused_bound(p, K: int, C: int, npx: int):
+    """(ms, bound_by, operations, bytes) of the fused cost of K candidates
+    over npx covered pixels: the FP32 operations of the OPS_* count above
+    at the FP32 peak, against abc (3K), the reference (3C), the source (C)
+    and the output (K) words, each once, at the HBM rate."""
+    from gipuma_tpu_torch.ops.sdg_fused import window_geometry
+    xs_off, rows_c, xs_ext, ys_ext = window_geometry(p)
+    T, E, n_contrib = len(ys_ext), len(xs_ext), len(rows_c) * len(xs_off)
+    per_cand = (T * E * (OPS_POSITION + OPS_LERP_C * C) + E * OPS_COLUMN
+                + T * OPS_ROW + OPS_CANDIDATE
+                + n_contrib * (OPS_CONTRIB_C * C + OPS_CONTRIB + (C > 1)))
+    per_px = K * per_cand + n_contrib * (OPS_WEIGHT_C * C + OPS_WEIGHT)
+    ops = npx * per_px
+    nbytes = npx * 4 * (3 * K + 3 * C + C + K)
+    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", ops, nbytes)
+
+
+def pass1_mask(torch, r, mask2, in_h):
+    """The first gather pass's tile mask of the two-pass chain that
+    permute2d replaced: tile (row block, 128-lane group) of its [in_h,
+    out_w] output is on iff an output on mask2's tiles reads a row in it
+    (the row-gather kernel's masked cases and the chain's timing)."""
+    from gipuma_tpu_torch.ops.permute2d import _nearest
+    out_h, out_w = r.shape
+    on = mask2.to(torch.bool).repeat_interleave(8, 0).repeat_interleave(
+        128, 1)[:out_w, :out_h].t()
+    rows = _nearest(r, in_h)[on]
+    lanes = torch.arange(out_w, device=r.device).expand(out_h, out_w)[on]
+    m1 = torch.zeros((-(-in_h // 8), -(-out_w // 128)), dtype=torch.int32,
+                     device=r.device)
+    m1[rows // 8, lanes // 128] = 1
+    return m1
+
+
+def permute_bound(torch, x, c1, r, mask2):
+    """(ms, bytes) the one-pass permutation must move for these inputs: R
+    and the output words of the consumed outputs (those on mask2's tiles,
+    all without it), and the distinct C1 entries and source words they
+    read, each once, at the HBM rate."""
+    from gipuma_tpu_torch.ops.permute2d import permute2d_index
+    C, in_h, in_w = x.shape
+    out_h, out_w = r.shape
+    on = torch.ones((out_h, out_w), dtype=torch.bool, device=r.device)
+    if mask2 is not None:
+        on = mask2.to(torch.bool).repeat_interleave(8, 0).repeat_interleave(
+            128, 1)[:out_w, :out_h].t()
+    flat = permute2d_index(c1, r, in_h, in_w)[on]
+    lanes = torch.arange(out_w, device=r.device).expand(out_h, out_w)[on]
+    n_on = int(on.sum())
+    n_c1 = int(torch.unique((flat // in_w) * out_w + lanes).numel())
+    n_src = int(torch.unique(flat).numel())
+    nbytes = 4 * (n_on + n_c1 + C * n_src + C * n_on)
+    return nbytes / HBM_BPS * 1e3, nbytes
 
 
 def main() -> int:
@@ -312,7 +457,9 @@ def main() -> int:
         from gipuma_tpu_torch.ops import checkerboard as cb
         from gipuma_tpu_torch.ops import cost as ec
         from gipuma_tpu_torch.ops import rect_cost as rc
-        from gipuma_tpu_torch.ops.permute2d import permute2d
+        from gipuma_tpu_torch.ops.permute2d import (permute2d_cuda,
+                                                    permute2d_index,
+                                                    permute2d_plain)
         from gipuma_tpu_torch.ops.rowgather import (
             row_gather_affine_cuda, row_gather_affine_plain,
             row_gather_lerp_cuda, row_gather_lerp_plain,
@@ -320,8 +467,7 @@ def main() -> int:
         from gipuma_tpu_torch.ops.sampling import (bilinear_sample_cuda,
                                                    bilinear_sample_plain)
         from gipuma_tpu_torch.ops.sdg_fused import (
-            fused_sdg_cost_batch_cuda, fused_sdg_cost_batch_plain,
-            window_geometry)
+            fused_sdg_cost_batch_cuda, fused_sdg_cost_batch_plain)
         from gipuma_tpu_torch.pipeline import (compute_depthmap, prepare_job,
                                                run_prepared_job,
                                                write_outputs)
@@ -381,65 +527,40 @@ def main() -> int:
     def zero_cost(s, p, par, n, d):
         return torch.zeros(n.shape[:2], device=device)
 
-    with torch.no_grad():
-        st = init_state(scene, jparams, gen, cost_fn=zero_cost)
-    h, w = st.cost.shape
-    n_full = st.planes[..., :3]
-    d_full = st.planes[..., 3]
+    h, w = gt.shape
     R = len(jparams.refinement_schedule())
     v0 = 0
+    m_words, abc_of = bench_inputs(torch, scene, jparams, device, v0)
 
-    def m_words(K, pack, sc=scene):
-        """Forward-permute input of K candidates (parity 0 active pixels,
-        the same plane jittered per candidate): [CH, S, S] rotated."""
-        n0 = cb.extract(n_full, 0)
-        d0 = cb.extract(d_full, 0)
-        g2 = make_generator(K, device)
-        jit = 1.0 + 0.01 * torch.randn((K,) + d0.shape, generator=g2,
-                                       device=device)
-        n = n0[None].expand(K, *n0.shape).contiguous()
-        d = d0[None] * jit
-        m = n / d[..., None]
-        m_chw = torch.repeat_interleave(m, 2, dim=2).permute(0, 3, 1, 2)
-        if pack == "pair":
-            m_ch = rc._pack_m(m_chw).reshape(2 * K, h, w)
-        elif pack == "tri":
-            m_ch = rc._pack_m_tri(m_chw)
-        else:
-            m_ch = m_chw.reshape(3 * K, h, w)
-        rk = torch.rot90(m_ch, sc.rotations()[v0], dims=(-2, -1))
-        s_sq = sc.fwd_c1.shape[-2]
-        out = rk.new_zeros((rk.shape[0], s_sq, s_sq))
-        out[:, :rk.shape[-2], :rk.shape[-1]] = rk
-        return out.contiguous()
-
-    gather_cases = []   # (what, src, x, mask)
-
-    def add_gathers(what, src, c1, r, m1, m2):
-        gather_cases.append((f"{what} pass1", src.contiguous(),
-                             c1[None].contiguous(), m1))
-        a = row_gather_nearest_plain(src, c1[None])[0]
-        a_t = a.transpose(1, 2).contiguous()
-        gather_cases.append((f"{what} pass2", a_t,
-                             r.t().contiguous()[None], m2))
-        return a_t
-
-    log("kernel vs plain: row_gather_nearest")
-    fwd_src_pair = m_words(1, "pair")
-    add_gathers("fwd int32 K=1", fwd_src_pair, scene.fwd_c1[v0],
-                scene.fwd_r[v0], scene.fwd1_ok[v0], scene.fwd2_ok[v0])
-    add_gathers("fwd int32 K=4 tri", m_words(4, "tri"), scene.fwd_c1[v0],
-                scene.fwd_r[v0], scene.fwd1_ok[v0], scene.fwd2_ok[v0])
-    add_gathers("fwd f32 K=1", m_words(1, "none"), scene.fwd_c1[v0],
-                scene.fwd_r[v0], None, None)
+    # The forward and return permutations of view 0 (int32 words of K=1
+    # plane pairs and K=4 f16 triples, f32 planes, an f32 cost and K=4
+    # f16 cost pairs), each with its two pass masks.
     hrp, wrp = scene.ref_rect.shape[-2:]
     cost_src = (torch.rand((1, hrp, wrp), generator=gen, device=device)
                 * 50.0).contiguous()
-    add_gathers("ret f32 K=1", cost_src, scene.ret_c1[v0], scene.ret_r[v0],
-                scene.ret1_ok[v0], scene.ret2_ok[v0])
-    add_gathers("ret int32 K=4", rc._pack_f16_pairs(
-        cost_src.expand(4, hrp, wrp)).contiguous(), scene.ret_c1[v0],
-        scene.ret_r[v0], scene.ret1_ok[v0], scene.ret2_ok[v0])
+    fwd_src_pair = m_words(1, "pair")
+    fwd_t = (scene.fwd_c1[v0], scene.fwd_r[v0],
+             pass1_mask(torch, scene.fwd_r[v0], scene.fwd2_ok[v0],
+                        scene.fwd_c1.shape[-2]), scene.fwd2_ok[v0])
+    ret_t = (scene.ret_c1[v0], scene.ret_r[v0],
+             pass1_mask(torch, scene.ret_r[v0], scene.ret2_ok[v0],
+                        scene.ret_c1.shape[-2]), scene.ret2_ok[v0])
+    perm_cases = [   # (what, x, c1, r, mask1, mask2)
+        ("fwd int32 K=1", fwd_src_pair, *fwd_t),
+        ("fwd int32 K=4 tri", m_words(4, "tri"), *fwd_t),
+        ("fwd f32 K=1", m_words(1, "none"), *fwd_t[:2], None, None),
+        ("ret f32 K=1", cost_src, *ret_t),
+        ("ret int32 K=4", rc._pack_f16_pairs(
+            cost_src.expand(4, hrp, wrp)).contiguous(), *ret_t)]
+
+    log("kernel vs plain: row_gather_nearest")
+    gather_cases = []   # (what, src, x, mask)
+    for what, src, c1, r, m1, m2 in perm_cases:
+        gather_cases.append((f"{what} pass1", src.contiguous(),
+                             c1[None].contiguous(), m1))
+        a = row_gather_nearest_plain(src, c1[None])[0]
+        gather_cases.append((f"{what} pass2", a.transpose(1, 2).contiguous(),
+                             r.t().contiguous()[None], m2))
     max_err_gather = 0.0
     for what, src, x, mask in gather_cases:
         for use_mask in ((False, True) if mask is not None else (False,)):
@@ -449,6 +570,33 @@ def main() -> int:
             max_err_gather = max(max_err_gather, masked_equal(
                 got, want, mk, f"{what} {src.dtype} {tuple(src.shape)}->"
                                f"{tuple(x.shape)} mask={use_mask}"))
+    del gather_cases
+
+    # The one-pass permutation: its plain version equals the two plain
+    # passes everywhere; the kernel equals its plain version at consumed
+    # coordinates (the outputs of mask2's on tiles; the first pass's mask
+    # has no counterpart).
+    log("kernel vs plain: permute2d")
+    max_err_perm = 0.0
+    for what, src, c1, r, m1, m2 in perm_cases:
+        want = permute2d_plain(src, c1, r)
+        a = row_gather_nearest_plain(src, c1[None])[0]
+        two = row_gather_nearest_plain(a.transpose(1, 2).contiguous(),
+                                       r.t().contiguous()[None])[0]
+        masked_equal(want.transpose(1, 2)[None], two[None], None,
+                     f"{what}: plain one pass vs two plain passes",
+                     "permute2d_plain")
+        for use_mask in ((False, True) if m2 is not None else (False,)):
+            mk = m2 if use_mask else None
+            got = permute2d_cuda(src, c1, r, mk)
+            if got.shape != want.shape or not got.is_contiguous():
+                fail(f"permute2d: {what}: shape {tuple(got.shape)}")
+            # mask2 tiles lie over the transposed [out_w, out_h] output.
+            max_err_perm = max(max_err_perm, masked_equal(
+                got.transpose(1, 2)[None], want.transpose(1, 2)[None], mk,
+                f"{what} {src.dtype} {tuple(src.shape)}->"
+                f"{tuple(got.shape)} mask={use_mask}", "permute2d"))
+        del want, a, two, got
 
     log("kernel vs plain: sdg_fused_cost")
     ref_v = scene.ref_rect[v0]
@@ -461,39 +609,43 @@ def main() -> int:
     hv, wv = (int(a) for a in scene.hw_valid[v0].tolist())
     cov[(hv + 7) // 8 * 8:] = False
     cov[:, (wv + 127) // 128 * 128:] = False
+    every = torch.ones_like(cov)
     full_p = jparams
     cull_p = jparams.replace(box_hsize=jparams.cull_box,
                              box_vsize=jparams.cull_box,
                              window_increment=jparams.cull_increment)
 
-    def abc_of(K, pack, sc=scene):
-        mp = m_words(K, pack, sc)
-        m_rect = permute2d(mp, sc.fwd_c1[v0], sc.fwd_r[v0])
-        hh, ww = sc.ref_rect.shape[-2:]
-        if pack == "pair":
-            m_rect = rc._unpack_m(m_rect.reshape(K, 2, hh, ww))
-        else:
-            m_rect = rc._unpack_m_tri(m_rect, K)
-        return rc._apply_L(sc.L[v0], m_rect).contiguous()
-
+    # (what, params, abc, ref, src, hw_valid, tile_ok, covered pixels)
     fused_cases = []
     for K in sorted({1, 4, R}):
         for label, p in (("box11/inc2", full_p), ("cull box9/inc4", cull_p)):
             abc = abc_of(K, "pair" if K == 1 else "tri")
-            fused_cases.append((f"K={K} {label}", p, abc))
+            fused_cases.append((f"K={K} {label}", p, abc, ref_v, src_v,
+                                hw_v, tm_v, cov))
+    # Every tile, the image borders included (no hw_valid, no tile mask).
+    fused_cases.append(("K=1 box11/inc2 every tile", full_p,
+                        fused_cases[0][2], ref_v, src_v, None, None, every))
+    # C=3: view 0's channels and their column shifts as three channels.
+    ref3 = torch.cat([torch.cat([ref_v[q:q + 1], ref_v[q:q + 1].roll(3, 1),
+                                 ref_v[q:q + 1].roll(-5, 1)])
+                      for q in range(3)]).contiguous()
+    src3 = torch.cat([src_v, src_v.roll(3, 1), src_v.roll(-5, 1)]
+                     ).contiguous()
+    fused_cases.append(("K=1 box11/inc2 C=3", full_p, fused_cases[0][2],
+                        ref3, src3, hw_v, tm_v, cov))
     max_err_fused = 0.0
-    for what, p, abc in fused_cases:
-        want = fused_sdg_cost_batch_plain(ref_v, src_v, abc, p, db_v[0],
+    for what, p, abc, fref, fsrc, fhw, ftm, fcov in fused_cases:
+        want = fused_sdg_cost_batch_plain(fref, fsrc, abc, p, db_v[0],
                                           db_v[1])
-        got = fused_sdg_cost_batch_cuda(ref_v, src_v, abc, p, db_v, hw_v,
-                                        tm_v)
-        diff = (got - want).abs()[:, cov]
+        got = fused_sdg_cost_batch_cuda(fref, fsrc, abc, p, db_v, fhw, ftm)
+        diff = (got - want).abs()[:, fcov]
         err = float(diff.max()) if diff.numel() else 0.0
         max_err_fused = max(max_err_fused, err)
-        log(f"  {what}: {int(cov.sum())} covered px, max |diff| {err:.3g}")
+        log(f"  {what}: {int(fcov.sum())} covered px, max |diff| {err:.3g}")
         if not err <= 1e-3:
             fail(f"sdg_fused_cost differs from its plain version: {what} "
                  f"max abs diff {err}")
+    del ref3, src3
 
     log("kernel vs plain: bilinear_sample")
     xs, xp = jobs["exact"].prep, jobs["exact"].params
@@ -668,13 +820,14 @@ def main() -> int:
 
     launches = {k: runs[p]["launches"][k]
                 for p, k in (("rect", "row_gather_nearest"),
+                             ("rect", "permute2d"),
                              ("rect", "sdg_fused_cost"),
                              ("exact", "bilinear_sample"),
                              ("f32", "row_gather_lerp"),
                              ("census", "row_gather_affine"))}
 
     gsrc, gx = fwd_src_pair, scene.fwd_c1[v0][None].contiguous()
-    gmask = scene.fwd1_ok[v0]
+    gmask = fwd_t[2]
     gC, gH, gW = gsrc.shape
     gB, _, gWs = gx.shape
     on_tiles = int(gmask.sum())
@@ -694,40 +847,79 @@ def main() -> int:
               "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
               "bound_ms": g_bound, "bound_by": "bytes",
               "launches": launches["row_gather_nearest"],
-              "main_path_ms_per_launch": per_launch_ms(
-                  "rect", "row_gather_nearest")}
+              "main_path_ms_per_launch": "off the main path"}
     log(json.dumps(g_line))
 
-    f_abc = fused_cases[0][2]          # K=1, box 11 / inc 2: the full pass
-    K = f_abc.shape[0]
-    xs_off, rows_c, xs_ext, ys_ext = window_geometry(full_p)
+    # permute2d at the forward permutation of the full pass (K=1 plane
+    # pairs) and at the return permutation (an f32 cost), both masks on,
+    # beside the two-pass chain it replaced (two nearest gathers, the
+    # intermediate's and the table's transposes, and the copy of the
+    # transposed result the caller made) and one PyTorch call for the same
+    # gather (index_select at the composite flat index, precomputed).
+    perm_lines = {}
+    for label, (px, pc1, pr, pm1, pm2) in (
+            ("fwd", (fwd_src_pair, *fwd_t)), ("ret", (cost_src, *ret_t))):
+        p_bound, p_bytes = permute_bound(torch, px, pc1, pr, pm2)
+        p_ms = graph_ms(lambda: permute2d_cuda(px, pc1, pr, pm2))
+        p_plain = graph_ms(lambda: permute2d_plain(px, pc1, pr))
+
+        def two_pass():
+            a = row_gather_nearest_cuda(px, pc1[None], pm1)[0]
+            o = row_gather_nearest_cuda(a.transpose(1, 2).contiguous(),
+                                        pr.t().contiguous()[None], pm2)[0]
+            return o.transpose(1, 2).contiguous()
+
+        p_chain = graph_ms(two_pass)
+        p_idx = permute2d_index(pc1, pr, *px.shape[1:]).reshape(-1)
+        pxf = px.flatten(1)
+        p_lib = graph_ms(lambda: pxf.index_select(1, p_idx))
+        perm_lines[label] = {
+            "kernel": "permute2d", "card": card,
+            "shape": f"{label} x {tuple(px.shape)} {px.dtype} -> "
+                     f"{(px.shape[0], *pr.shape)}, masks "
+                     f"{tuple(pm1.shape)} {tuple(pm2.shape)}",
+            "ms": p_ms, "two_pass_chain_ms": p_chain, "plain_ms": p_plain,
+            "library_ms": p_lib, "bound_ms": p_bound, "bound_by": "bytes",
+            "bound_bytes": p_bytes, "launches": launches["permute2d"],
+            "main_path_ms_per_launch": per_launch_ms("rect", "permute2d")}
+        log(json.dumps(perm_lines[label]))
+        del p_idx, pxf
+
+    # The fused cost at the full pass's shape (K=1, box 11 / inc 2) and
+    # the cull pass's (K=4, box 9 / inc 4), each beside its own bound.
     C = ref_v.shape[0] // 3
     npx = int(cov.sum())
-    f_ops = K * len(ys_ext) * len(xs_ext) * C * npx * FLOP_PER_SAMPLE
-    f_bytes = npx * 4 * (3 * K + 3 * C + C + K)
-    f_bound = max(f_ops / FP32_FLOPS, f_bytes / HBM_BPS) * 1e3
-    f_by = "operations" if f_ops / FP32_FLOPS > f_bytes / HBM_BPS \
-        else "bytes"
-    f_ms = graph_ms(lambda: fused_sdg_cost_batch_cuda(
-        ref_v, src_v, f_abc, full_p, db_v, hw_v, tm_v))
-    f_plain = graph_ms(lambda: fused_sdg_cost_batch_plain(
-        ref_v, src_v, f_abc, full_p, db_v[0], db_v[1]), reps=3, rounds=3)
-    f_line = {"kernel": "sdg_fused_cost", "card": card,
-              "shape": f"K={K} box 11/inc 2, ref {tuple(ref_v.shape)}, "
-                       f"{npx} covered px",
-              "ms": f_ms, "plain_ms": f_plain, "library_ms": None,
-              "bound_ms": f_bound, "bound_by": f_by,
-              "launches": launches["sdg_fused_cost"],
-              "main_path_ms_per_launch": per_launch_ms("rect",
-                                                       "sdg_fused_cost")}
-    log(json.dumps(f_line))
-    # The sparse screening pass's shape, for the record.
-    s_abc = fused_cases[1][2]
-    s_ms = graph_ms(lambda: fused_sdg_cost_batch_cuda(
-        ref_v, src_v, s_abc, cull_p, db_v, hw_v, tm_v))
-    log(json.dumps({"kernel": "sdg_fused_cost", "card": card,
-                    "shape": f"K={s_abc.shape[0]} cull box 9/inc 4",
-                    "ms": s_ms}))
+    fused_lines = {}
+    for label, want_what in (("full", "K=1 box11/inc2"),
+                             ("cull", "K=4 cull box9/inc4")):
+        _, fp, fabc = next(c for c in fused_cases if c[0] == want_what)[:3]
+        K = fabc.shape[0]
+        f_bound, f_by, f_ops, f_bytes = fused_bound(fp, K, C, npx)
+        f_ms = graph_ms(lambda: fused_sdg_cost_batch_cuda(
+            ref_v, src_v, fabc, fp, db_v, hw_v, tm_v))
+        f_plain = graph_ms(lambda: fused_sdg_cost_batch_plain(
+            ref_v, src_v, fabc, fp, db_v[0], db_v[1]), reps=3, rounds=3)
+        fused_lines[label] = {
+            "kernel": "sdg_fused_cost", "card": card,
+            "shape": f"K={K} box {fp.box_hsize}/inc {fp.window_increment}, "
+                     f"ref {tuple(ref_v.shape)}, {npx} covered px",
+            "ms": f_ms, "plain_ms": f_plain, "library_ms": None,
+            "bound_ms": f_bound, "bound_by": f_by, "bound_ops": f_ops,
+            "bound_bytes": f_bytes,
+            "bound_counts": "FP32 operations of the plain version's "
+                            "arithmetic (chip_smoke OPS_*): per candidate "
+                            "and covered pixel T*E positions x (8 + 3C) + "
+                            "E + 2T + 2 + NROW*NCOL contributions x (11C + "
+                            "6, +1 at C>1); per pixel NROW*NCOL weights x "
+                            "(2C + 1), shared by the K candidates; at 67 "
+                            "TFLOP/s, against each input word once at "
+                            "3.35 TB/s",
+            "ops_per_candidate_px": f_ops / (K * npx),
+            "launches": launches["sdg_fused_cost"],
+            "main_path_ms_per_launch": per_launch_ms("rect",
+                                                     "sdg_fused_cost")}
+        log(json.dumps(fused_lines[label]))
+    f_line = fused_lines["full"]
 
     # The sampler at the exact path's largest launch: view 0, K=4
     # propagation candidates x 36 offsets.  Bound: per sample 8 B of
@@ -828,12 +1020,24 @@ def main() -> int:
          "max_abs_err": max_err_gather,
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
          "bound_by": "bytes", "library_ms": g_lib},
+        {"name": "permute2d", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/permute2d.cu",
+         "replaces": "gipuma_tpu/ops/pallas_rowgather.py:40",
+         "launches": launches["permute2d"],
+         "max_abs_err": max_err_perm, "ms": perm_lines["fwd"]["ms"],
+         "plain_ms": perm_lines["fwd"]["plain_ms"],
+         "bound_ms": perm_lines["fwd"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": perm_lines["fwd"]["library_ms"],
+         "two_pass_chain_ms": perm_lines["fwd"]["two_pass_chain_ms"]},
         {"name": "sdg_fused_cost", "route": "cuda",
          "source": "gipuma_tpu_torch/csrc/sdg_fused.cu",
          "replaces": "gipuma_tpu/ops/pallas_sdg_fused.py:73",
          "launches": launches["sdg_fused_cost"],
-         "max_abs_err": max_err_fused, "ms": f_ms, "plain_ms": f_plain,
-         "bound_ms": f_bound, "bound_by": f_by, "library_ms": None},
+         "max_abs_err": max_err_fused, "ms": f_line["ms"],
+         "plain_ms": f_line["plain_ms"], "bound_ms": f_line["bound_ms"],
+         "bound_by": f_line["bound_by"], "library_ms": None,
+         "cull_shape": {k: fused_lines["cull"][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "bilinear_sample", "route": "cuda",
          "source": "gipuma_tpu_torch/csrc/sampling.cu",
          "replaces": "gipuma_tpu/ops/pallas_sampling.py:61",

@@ -73,8 +73,7 @@ def params_from_dict(d: Mapping) -> AlgorithmParams:
 # Integer fields whatever dtype they arrive in.  src_rect is not one: it
 # keeps its own dtype (packed int32 words, or the f32 channels of the
 # pack_taps=False layout).
-_INT_FIELDS = {"rot_k", "hw_valid", "tile_ok", "fwd2_ok", "ret1_ok",
-               "fwd1_ok", "ret2_ok"}
+_INT_FIELDS = {"rot_k", "hw_valid", "tile_ok", "fwd2_ok", "ret2_ok"}
 
 
 def _tensor(a, device, name):

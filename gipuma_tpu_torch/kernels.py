@@ -4,7 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``)
 and loaded with ``ctypes``.  Builds run at first use, all sources in
 parallel, into ``build/`` beside this file; a library is rebuilt only when
-its source or flags change (the file name carries their hash).
+its source or flags change (the file name carries their hash).  The flags
+are ``NVCC_FLAGS`` and the source's own ``SOURCE_FLAGS`` (``nvcc_command``
+gives the whole command).
 
 ``counts`` holds one plain integer per kernel: a wrapper adds one exactly
 where it launches its kernel.  ``reset_counts`` sets them all to 0.
@@ -31,13 +33,27 @@ SOURCES = {
     "sampling": "sampling.cu",
     "rowgather_lerp": "rowgather_lerp.cu",
     "rowgather_affine": "rowgather_affine.cu",
+    "permute2d": "permute2d.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags.  The gathers and the sampler are held bit-equal to
+# their plain versions, which round every product and sum on its own, so
+# they are built without FMA contraction.  The fused cost is held to 1e-3:
+# it rounds its sample positions explicitly (__fmul_rn / __fadd_rn) and
+# lets the rest of its arithmetic contract.
+SOURCE_FLAGS = {
+    "rowgather": ["-fmad=false"],
+    "sdg_fused": ["-fmad=true"],
+    "sampling": ["-fmad=false"],
+    "rowgather_lerp": ["-fmad=false"],
+    "rowgather_affine": ["-fmad=false"],
+    "permute2d": ["-fmad=false"],
+}
 
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
-          "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0}
+          "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
+          "permute2d": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -57,9 +73,19 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def flags(name: str) -> list[str]:
+    """The nvcc flags of kernel library `name`."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
+def nvcc_command(name: str, out, nvcc: str = "nvcc") -> list[str]:
+    """The whole nvcc command that builds library `name` into `out`."""
+    return [nvcc, *flags(name), "-o", str(out), str(CSRC / SOURCES[name])]
+
+
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -78,7 +104,7 @@ def build(names=None) -> dict[str, float]:
     for n in todo:
         out = _target(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = nvcc_command(n, tmp, nvcc)
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

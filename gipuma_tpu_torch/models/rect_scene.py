@@ -631,15 +631,14 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                 "blocks per tile (map too distorted for the "
                 "scratch-window gather)")
 
-        # Fused-kernel + permutation-pass tile masks, all derived from the
+        # Fused-kernel and permutation tile masks, all derived from the
         # read-back-target set (see ops/permute2d.build_permute_masks for
-        # the five mask geometries and their skip contracts).
-        tile_ok, fwd1_ok, fwd2_ok, ret1_ok, ret2_ok = build_permute_masks(
-            tgt, fwd, ret, hr, wr, s_sq, k_rot, h, w)
+        # the three mask geometries and their skip contracts).
+        tile_ok, fwd2_ok, ret2_ok = build_permute_masks(
+            tgt, hr, wr, s_sq, k_rot, h, w)
 
         pair = (ref_rect, src_rect, L_local, fwd, ret, hr, wr,
-                k_rot, (d_lo, d_hi), tile_ok, fwd2_ok, ret1_ok,
-                fwd1_ok, ret2_ok)
+                k_rot, (d_lo, d_hi), tile_ok, fwd2_ok, ret2_ok)
         pinfo = {
             "view": v, "rect_shape": (hr, wr), "rot_k": k_rot,
             "scales": (round(a_scale, 3), round(b_shear, 3),
@@ -755,9 +754,7 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
     s8, s128 = -(-s_sq // 8), -(-s_sq // 128)
     tile_ok = masks(9, hrp // 8, wrp // 128)
     fwd2_ok = masks(10, wrp // 8, -(-hrp // 128))
-    ret1_ok = masks(11, hrp // 8, s128)
-    fwd1_ok = masks(12, s8, wrp // 128)
-    ret2_ok = masks(13, s8, s128)
+    ret2_ok = masks(11, s8, s128)
 
     # Static gather-span bounds, kept in spans.shape as in the JAX package
     # (TPU scratch-window sizes; the CUDA kernels read true samples).
@@ -774,8 +771,7 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                       fwd_c1=fwd_c1, fwd_r=fwd_r, ret_c1=ret_c1, ret_r=ret_r,
                       rot_k=rot_k, disp_bounds=disp_bounds, spans=spans,
                       hw_valid=hw_valid, tile_ok=tile_ok,
-                      fwd2_ok=fwd2_ok, ret1_ok=ret1_ok,
-                      fwd1_ok=fwd1_ok, ret2_ok=ret2_ok, rot_k_host=rot_host)
+                      fwd2_ok=fwd2_ok, ret2_ok=ret2_ok, rot_k_host=rot_host)
     info["rect_shape_padded"] = (hrp, wrp)
     info["spans"] = (span_sample, span_perm)
     return scene, info

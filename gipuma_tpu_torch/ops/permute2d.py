@@ -1,25 +1,32 @@
-"""Exact 2-D nearest-neighbor permutation as two row-aligned gather passes.
+"""Exact 2-D nearest-neighbor permutation: two-pass tables, one pass.
 
 Counterpart of ``gipuma_tpu/ops/permute2d.py``.  The table builders are
-numpy copies (bitwise equal to the JAX package's); ``permute2d`` runs both
-passes through the nearest row gather (ops/rowgather.py, kernel 1 on the
-card):
+numpy copies (bitwise equal to the JAX package's).  The JAX package applies
+a permutation as two row-aligned gather passes, because a TPU gathers only
+along lanes:
 
     pass 1 (horizontal):  A[r, l] = in[r, C1[r, l]]      r in [0, in_h)
     pass 2 (vertical):    out[s, l] = A[R[s, l], l]       (row gather on
                                                            transposed data)
+
+``permute2d`` computes their composite in one pass,
+out[s, l] = in[R[s, l], C1[R[s, l], l]] (each index rounded and clipped as
+its pass rounds it), so it equals the two passes index for index
+(``csrc/permute2d.cu`` on the card).
 
 Exactness requires a consistent pass-1 table: C1[R[s, l], l] == C[s, l] for
 every (s, l); `build_tables` reports the residual.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .rowgather import row_gather
+from .. import kernels
+from .rowgather import _cuda_fn, _tile_mask
 
 
 class PermuteTables(NamedTuple):
@@ -182,33 +189,92 @@ def build_tables(R: np.ndarray, C: np.ndarray, in_h: int, in_w: int,
                          in_w=in_w, conflicts=conflicts, affected=affected)
 
 
+def _nearest(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A pass's row or column index, as the gather rounds it:
+    clip(int(clip(t, 0, n-1) + 0.5), 0, n-1), a NaN entry read as 0 (the
+    kernel's clip does that; a float-to-int cast of NaN is undefined on
+    the CPU)."""
+    t = torch.nan_to_num(t, nan=0.0).clamp(0.0, float(n - 1))
+    return (t + 0.5).to(torch.int64).clamp(0, n - 1)
+
+
+def permute2d_index(c1: torch.Tensor, r: torch.Tensor, in_h: int,
+                    in_w: int) -> torch.Tensor:
+    """The composite flat source index ri * in_w + col, [out_h, out_w]
+    int64: ri from r (pass 2), col from c1 at row ri (pass 1)."""
+    ri = _nearest(r, in_h)
+    lanes = torch.arange(r.shape[1], device=r.device)
+    return ri * in_w + _nearest(c1[ri, lanes], in_w)
+
+
+def permute2d_plain(x: torch.Tensor, c1: torch.Tensor, r: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain torch version of the one-pass permutation: x [C, in_h, in_w]
+    (any dtype) -> [C, out_h, out_w].  Computes every output (a mask only
+    makes outputs unspecified, so ignoring it is a valid result)."""
+    C, in_h, in_w = x.shape
+    flat = permute2d_index(c1, r, in_h, in_w)
+    return x.reshape(C, in_h * in_w)[:, flat]
+
+
+def permute2d_cuda(x: torch.Tensor, c1: torch.Tensor, r: torch.Tensor,
+                   mask2: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/permute2d.cu: same contract as the plain version, 32-bit
+    words; outputs on tiles of `mask2` that are off are unspecified."""
+    C, in_h, in_w = x.shape
+    out_h, out_w = r.shape
+    if x.element_size() != 4 or x.is_complex():
+        raise TypeError(f"permute2d: 32-bit words, got {x.dtype}")
+    if (c1.dtype != torch.float32 or r.dtype != torch.float32
+            or c1.shape != (in_h, out_w)):
+        raise ValueError(f"permute2d: float32 tables c1 [in_h, out_w], r "
+                         f"[out_h, out_w]; got {c1.dtype} "
+                         f"{tuple(c1.shape)}, {r.dtype} {tuple(r.shape)} "
+                         f"for x {tuple(x.shape)}")
+    for t in (x, c1, r):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("permute2d: contiguous inputs on one device")
+    if max(x.numel(), C * out_h * out_w) >= 2 ** 31:
+        raise ValueError("permute2d: 32-bit offsets")
+    tm = None if mask2 is None else _tile_mask(mask2, out_w, out_h)
+    out = torch.empty((C, out_h, out_w), dtype=torch.int32, device=x.device)
+    fn = _cuda_fn("permute2d", "gtt_permute2d",
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
+    rc = fn(kernels.ptr(x.view(torch.int32)), kernels.ptr(c1),
+            kernels.ptr(r), kernels.ptr(tm), kernels.ptr(out), C, in_h, in_w,
+            out_h, out_w, 0 if tm is None else tm.shape[1],
+            kernels.stream_ptr(x.device))
+    kernels.check(rc, "permute2d")
+    kernels.counts["permute2d"] += 1
+    return out.view(x.dtype)
+
+
 def permute2d(x: torch.Tensor, c1: torch.Tensor, r: torch.Tensor,
-              mask1: torch.Tensor | None = None,
               mask2: torch.Tensor | None = None) -> torch.Tensor:
-    """Apply a 2-pass permutation built by `build_tables`.
+    """Apply a permutation built by `build_tables`, in one pass.
 
     x: [in_h, in_w] or [C, in_h, in_w]; c1: [in_h, out_w]; r: [out_h, out_w]
-    (float32 tensors on x's device).  Returns [out_h, out_w] /
+    (float32 tensors on x's device).  Returns a contiguous [out_h, out_w] /
     [C, out_h, out_w].
 
-    mask1 / mask2: optional int32 output-tile masks for the two gather
-    passes (`build_permute_masks`): mask1 is [ceil(in_h/8), ceil(out_w/128)]
-    over pass 1's [in_h, out_w] output, mask2 is [ceil(out_w/8),
-    ceil(out_h/128)] over pass 2's TRANSPOSED [out_w, out_h] output.
-    Masked-off tiles hold unspecified values; the caller consumes only
-    final coordinates whose whole 2-pass chain is masked on.  The two
-    transposes are plain ``.transpose().contiguous()`` copies.
+    mask2: optional int32 output-tile mask (`build_permute_masks`),
+    [ceil(out_w/8), ceil(out_h/128)] tiles over the TRANSPOSED [out_w,
+    out_h] output (the layout of the JAX package's second gather pass).
+    Outputs whose tile is off hold unspecified values; the caller consumes
+    only coordinates on tiles that are on.  The JAX package's first-pass
+    mask has no counterpart: where it is off, its two-pass chain was
+    unspecified too.  The kernel on a CUDA tensor, the plain version on a
+    CPU tensor.
     """
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]
-    a = row_gather(x.contiguous(), c1.contiguous(), nearest=True,
-                   tile_ok=mask1)                             # [C, in_h, out_w]
-    a_t = a.transpose(1, 2).contiguous()                      # [C, out_w, in_h]
-    r_t = r.t().contiguous()                                  # [out_w, out_h]
-    o_t = row_gather(a_t, r_t, nearest=True,
-                     tile_ok=mask2)                           # [C, out_w, out_h]
-    out = o_t.transpose(1, 2)
+    if x.device.type == "cpu":
+        out = permute2d_plain(x, c1, r)
+    else:
+        out = permute2d_cuda(x.contiguous(), c1.contiguous(), r.contiguous(),
+                             mask2)
     return out[0] if squeeze else out
 
 
@@ -263,46 +329,34 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def build_permute_masks(tgt: np.ndarray, fwd: PermuteTables,
-                        ret: PermuteTables,
-                        hr: int, wr: int, s_sq: int, k_rot: int,
-                        h: int, w: int):
+def build_permute_masks(tgt: np.ndarray, hr: int, wr: int, s_sq: int,
+                        k_rot: int, h: int, w: int):
     """Tile masks for the rect fast path's skip machinery, all derived from
     one read-back-target set `tgt` ([hr, wr] bool: rect coordinates the
     return permutation addresses — see models/rect_scene.build_rect_scene).
 
-    Returns (tile_ok, fwd1_ok, fwd2_ok, ret1_ok, ret2_ok) int32 masks —
-    one per fused-kernel tile plus one per pass of each 2-pass
-    permutation, so every gather pass skips tiles whose outputs are never
-    consumed:
+    Returns (tile_ok, fwd2_ok, ret2_ok) int32 masks -- one per fused-kernel
+    tile plus one per permutation, so every permute2d skips tiles whose
+    outputs are never consumed:
 
     * tile_ok [ceil(hr/8), wr/128]: per-[8, 128]-tile target mask — the
       fused cost kernel (ops/pallas_sdg_fused.py) skips tiles with no
       target (the empty bbox triangles of a tilted footprint quad plus the
       source-footprint column margin); skipped tiles are never read back.
-    * fwd2_ok [wr/8, ceil(hr/128)]: pass-2 mask of the state->rect forward
+    * fwd2_ok [wr/8, ceil(hr/128)]: mask of the state->rect forward
       permutation (TRANSPOSED [wr, hr] output space): a tile must run iff
       it covers any pixel of any fused-kernel-evaluated (tile_ok) rect
       tile — the kernel reads the permuted plane field over WHOLE [8, 128]
       tiles it evaluates.
-    * fwd1_ok [ceil(s_sq/8), wr/128]: pass-1 mask of the forward
-      permutation ([s_sq, wr] output space): pass 2 computes whole tiles
-      it is enabled on and within them reads A[fwd.r[s, l], l] for EVERY
-      (s, l) of the tile, so pass-1 tile (r-block, l-group) must run iff
-      some such read selects row r in the block (same geometry as
-      ret1_ok, one pass earlier).
-    * ret1_ok [ceil(hr/8), ceil(s_sq/128)]: pass-1 mask of the rect->state
-      return permutation ([hr, s_sq] output space): tile (r-block,
-      l-group) must run iff some CONSUMED state output (s0 < hk, l < wk
-      after un-rotating by k_rot; dilated to pass-2 [8, 128] tile
-      granularity) selects row ret.r[s0, l] in the block.  Rows selected
-      only by smooth-fill outputs outside that region land in
-      never-consumed coordinates.
-    * ret2_ok [ceil(s_sq/8), ceil(s_sq/128)]: pass-2 mask of the return
-      permutation (TRANSPOSED [s_sq, s_sq] output space): the consumed
-      state outputs form the un-rotated [hk, wk] rectangle, so this is a
-      static rectangle mask — the S x S square pad beyond it (~25% at
-      4:3 images) is never consumed.
+    * ret2_ok [ceil(s_sq/8), ceil(s_sq/128)]: mask of the rect->state
+      return permutation (TRANSPOSED [s_sq, s_sq] output space): the
+      consumed state outputs form the un-rotated [hk, wk] rectangle, so
+      this is a static rectangle mask — the S x S square pad beyond it
+      (~25% at 4:3 images) is never consumed.
+
+    The JAX package's function also takes the two permutations' tables and
+    returns the masks of their first gather passes (fwd1_ok, ret1_ok),
+    which the one-pass permute2d does not need.
     """
     hp8 = _round_up(hr, 8)
     tgt_p = np.zeros((hp8, wr), bool)
@@ -316,27 +370,9 @@ def build_permute_masks(tgt: np.ndarray, fwd: PermuteTables,
     fwd2_ok = pix.T.reshape(wr // 8, 8, hp128 // 128, 128).any(
         axis=(1, 3)).astype(np.int32)
 
-    # fwd1_ok: consumed (s, l) = pixel dilation of fwd2_ok's ENABLED
-    # tiles (pass 2 gathers whole tiles), i.e. pix above restricted to
-    # the real [hr, wr] extent.
-    cons_f = pix[:hr, :wr]
-    rsel_f = np.clip(np.round(fwd.r[:hr, :wr]).astype(np.int32),
-                     0, s_sq - 1)[cons_f]
-    lsel_f = np.broadcast_to(np.arange(wr, dtype=np.int32),
-                             (hr, wr))[cons_f]
-    fwd1_ok = np.zeros((_round_up(s_sq, 8) // 8, wr // 128), np.int32)
-    fwd1_ok[rsel_f // 8, lsel_f // 128] = 1
-
     hk, wk = (w, h) if k_rot % 2 else (h, w)
-    ce_h = min(_round_up(hk, 128), s_sq)
-    ce_w = min(_round_up(wk, 8), s_sq)
-    rsel = np.clip(np.round(ret.r[:ce_h, :ce_w]).astype(np.int64),
-                   0, hr - 1)
-    lsel = np.broadcast_to(np.arange(ce_w), rsel.shape)
-    ret1_ok = np.zeros((hp8 // 8, _round_up(s_sq, 128) // 128), np.int32)
-    ret1_ok[rsel // 8, lsel // 128] = 1
 
     ret2_ok = np.zeros((_round_up(s_sq, 8) // 8,
                         _round_up(s_sq, 128) // 128), np.int32)
     ret2_ok[:-(-wk // 8), :-(-hk // 128)] = 1
-    return tile_ok, fwd1_ok, fwd2_ok, ret1_ok, ret2_ok
+    return tile_ok, fwd2_ok, ret2_ok

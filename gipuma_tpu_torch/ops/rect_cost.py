@@ -57,8 +57,6 @@ class RectScene(NamedTuple):
     hw_valid: torch.Tensor = None  # [V, 2] int32 valid (rows, cols)
     tile_ok: torch.Tensor = None   # [V, Hrp/8, Wrp/128] int32
     fwd2_ok: torch.Tensor = None   # [V, Wrp/8, ceil(Hrp/128)]
-    ret1_ok: torch.Tensor = None   # [V, ceil(Hrp/8), ceil(S/128)]
-    fwd1_ok: torch.Tensor = None   # [V, ceil(S/8), Wrp/128]
     ret2_ok: torch.Tensor = None   # [V, ceil(S/8), ceil(S/128)]
     cull: "RectScene" = None       # cull_downscale scene: a later slice
     # Host copy of rot_k (python ints): picks each view's rotation without
@@ -154,8 +152,7 @@ def _slice_views(scene: RectScene, stride: int) -> RectScene:
         ret_c1=sl(scene.ret_c1), ret_r=sl(scene.ret_r),
         rot_k=sl(scene.rot_k), disp_bounds=sl(scene.disp_bounds),
         hw_valid=sl(scene.hw_valid), tile_ok=sl(scene.tile_ok),
-        fwd2_ok=sl(scene.fwd2_ok), ret1_ok=sl(scene.ret1_ok),
-        fwd1_ok=sl(scene.fwd1_ok), ret2_ok=sl(scene.ret2_ok),
+        fwd2_ok=sl(scene.fwd2_ok), ret2_ok=sl(scene.ret2_ok),
         rot_k_host=tuple(scene.rotations()[::stride]))
 
 
@@ -507,14 +504,11 @@ def rect_per_view_costs_batch(scene: RectScene, params: AlgorithmParams,
     pskip = (params.rect_permute_skip and params.rect_footprint_skip
              and params.pack_taps and params.window_grads
              and scene.tile_ok is not None
-             and scene.fwd2_ok is not None and scene.ret1_ok is not None)
-    pskip2 = pskip and scene.fwd1_ok is not None \
-        and scene.ret2_ok is not None
+             and scene.fwd2_ok is not None and scene.ret2_ok is not None)
 
     costs = []
     for v, kv in enumerate(scene.rotations()):
         m_rect = permute2d(rot_pad(kv), scene.fwd_c1[v], scene.fwd_r[v],
-                           mask1=scene.fwd1_ok[v] if pskip2 else None,
                            mask2=scene.fwd2_ok[v] if pskip else None)
         tmv = scene.tile_ok[v] if footprint else None
         if extra_mask is not None:
@@ -540,8 +534,7 @@ def rect_per_view_costs_batch(scene: RectScene, params: AlgorithmParams,
         if cost_pack:
             cost_rect = _pack_f16_pairs(cost_rect)
         cost_sq = permute2d(cost_rect, scene.ret_c1[v], scene.ret_r[v],
-                            mask1=scene.ret1_ok[v] if pskip else None,
-                            mask2=scene.ret2_ok[v] if pskip2 else None)
+                            mask2=scene.ret2_ok[v] if pskip else None)
         hk, wk = (w, h) if kv % 2 else (h, w)
         cost_full = torch.rot90(cost_sq[:, :hk, :wk], (-kv) % 4, dims=(1, 2))
         cost_act = torch.where(rp == 0, cost_full[:, :, 0::2],

@@ -154,7 +154,8 @@ def fused_sdg_cost_batch_plain(ref_chw: torch.Tensor,
                              [gather_row(int(dy)) for dy in ys_ext])
 
 
-# Register-buffer capacities the CUDA kernel is instantiated for (E <= MAXE).
+# Register-buffer capacities the generic CUDA kernel is instantiated for
+# (E <= MAXE).
 _MAXE = (4, 8, 16)
 
 
@@ -184,8 +185,10 @@ def fused_sdg_cost_batch_cuda(ref_chw: torch.Tensor,
                          f"{ref_chw.dtype} {tuple(ref_chw.shape)}, "
                          f"{src_packed.dtype} {tuple(src_packed.shape)}, "
                          f"{abc_k.dtype} {tuple(abc_k.shape)}")
-    if wr % 128 or wr < 2 or hr > 65535 or K > 65535:
-        raise ValueError(f"sdg_fused: bad rect shape {hr}x{wr} (K={K})")
+    if (wr % 128 or wr < 2 or wr >= 2 ** 23
+            or max(3 * K, ch) * hr * wr >= 2 ** 31):
+        raise ValueError(f"sdg_fused: bad rect shape {hr}x{wr} (K={K}): Wr "
+                         f"a multiple of 128 below 2^23, 32-bit offsets")
     for t in (ref_chw, src_packed, abc_k, disp_bounds, hw_valid, tile_ok):
         if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("sdg_fused: contiguous inputs on one device")

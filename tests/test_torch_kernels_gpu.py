@@ -4,16 +4,18 @@ nothing of JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 
-Tolerances: the nearest gather is bit-equal at masked-on coordinates; the
-fused window cost agrees to 1e-3 abs at covered pixels (the plain version
-rounds the weight and the window sums in another order); the bilinear
+Tolerances: the nearest gather and the one-pass permutation are
+bit-equal at masked-on coordinates; the fused window cost agrees to 1e-3
+abs at covered pixels (the plain version rounds the weight and the window
+sums in another order, and the kernel contracts to FMA); the bilinear
 sampler and the lerp and affine row gathers are bit-equal (NaN where the
 plain version gives NaN)."""
 import numpy as np
 import pytest
 import torch
 
-from gipuma_tpu_torch.config import AlgorithmParams
+from gipuma_tpu_torch.config import MAXCOST, AlgorithmParams
+from gipuma_tpu_torch.ops import permute2d as tpm
 from gipuma_tpu_torch.ops import rowgather as trg
 from gipuma_tpu_torch.ops import sampling as tsm
 from gipuma_tpu_torch.ops import sdg_fused as tsf
@@ -81,6 +83,124 @@ def test_fused_kernel_matches_plain(cuda_device, C, K, box, inc, onesided):
     cov[32:] = False
     cov[:, 256:] = False
     assert torch.equal(got_m[:, cov], got[:, cov])
+
+
+# The tile kernel's windows (T in {3, 4, 6}: box 9 / inc 4, box 7 / inc 2,
+# box 11 / inc 2 one-sided), the same boxes with the extension ring (T 5, 6,
+# 8: generic but for box 7), and box 25 (T 13: the generic kernel).
+@pytest.mark.parametrize("box,inc,onesided", [
+    (7, 2, True), (9, 4, True), (11, 2, True), (7, 2, False), (9, 4, False),
+    (11, 2, False), (25, 2, True)])
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("C", [1, 3])
+def test_fused_tile_kernel_matches_plain(cuda_device, C, K, box, inc,
+                                         onesided):
+    """Every tile of a 37 x 384 grid touches an image border (the last
+    row tile is partial); per-pixel planes, a NaN plane pixel (MAXCOST),
+    and hw_valid / tile_ok skips checked at covered pixels."""
+    hr, wr = 37, 384
+    rng = np.random.default_rng(11)
+    ref, src, abc = _inputs(5, C, hr, wr, K)
+    abc = abc + rng.normal(0.0, 0.003, size=abc.shape).astype(np.float32)
+    abc[K - 1, 0, 4, 200] = np.nan
+    p = AlgorithmParams(box_hsize=box, box_vsize=box, window_increment=inc,
+                        sdg_onesided_edges=onesided)
+    dev = cuda_device
+    ref_t = torch.from_numpy(ref).to(dev)
+    src_t = torch.from_numpy(src).to(dev)
+    abc_t = torch.from_numpy(abc).to(dev)
+    db = torch.tensor([-20.0, 40.0], device=dev)
+    want = tsf.fused_sdg_cost_batch_plain(ref_t, src_t, abc_t, p, db[0],
+                                          db[1])
+    got = tsf.fused_sdg_cost_batch_cuda(ref_t, src_t, abc_t, p, db)
+    assert float((got - want).abs().max()) <= 1e-3
+    assert float(got[K - 1, 4, 200]) == MAXCOST
+    hwv = torch.tensor([30, 256], dtype=torch.int32, device=dev)
+    tm = torch.ones((5, 3), dtype=torch.int32, device=dev)
+    tm[0, 1] = 0
+    tm[2, 0] = 0
+    got_m = tsf.fused_sdg_cost_batch_cuda(ref_t, src_t, abc_t, p, db, hwv, tm)
+    cov = tm.bool().repeat_interleave(8, 0).repeat_interleave(128, 1)[:hr]
+    cov[32:] = False
+    cov[:, 256:] = False
+    assert float((got_m[:, cov] - want[:, cov]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("onesided", [True, False])
+def test_fused_kernel_reference_from_global_memory(cuda_device, onesided):
+    """C=3 at box 41 / inc 4: the reference tile with its halo, 48 x 168 x
+    9 floats (290 KB), exceeds the shared memory of an SM, so the generic
+    kernel reads the reference window from global memory; held to
+    the plain version like every window, with hw_valid / tile_ok skips."""
+    C, K, hr, wr, box, inc = 3, 2, 37, 384, 41, 4
+    tile_bytes = 3 * C * (8 + 2 * (box // 2)) * (128 + 2 * (box // 2)) * 4
+    # No block gets more shared memory than its SM has.
+    assert tile_bytes > torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_multiprocessor
+    ref, src, abc = _inputs(9, C, hr, wr, K)
+    p = AlgorithmParams(box_hsize=box, box_vsize=box, window_increment=inc,
+                        sdg_onesided_edges=onesided)
+    dev = cuda_device
+    ref_t = torch.from_numpy(ref).to(dev)
+    src_t = torch.from_numpy(src).to(dev)
+    abc_t = torch.from_numpy(abc).to(dev)
+    db = torch.tensor([-20.0, 40.0], device=dev)
+    want = tsf.fused_sdg_cost_batch_plain(ref_t, src_t, abc_t, p, db[0],
+                                          db[1])
+    got = tsf.fused_sdg_cost_batch_cuda(ref_t, src_t, abc_t, p, db)
+    assert float((got - want).abs().max()) <= 1e-3
+    hwv = torch.tensor([30, 256], dtype=torch.int32, device=dev)
+    tm = torch.ones((5, 3), dtype=torch.int32, device=dev)
+    tm[1, 1] = 0
+    got_m = tsf.fused_sdg_cost_batch_cuda(ref_t, src_t, abc_t, p, db, hwv, tm)
+    cov = tm.bool().repeat_interleave(8, 0).repeat_interleave(128, 1)[:hr]
+    cov[32:] = False
+    cov[:, 256:] = False
+    assert float((got_m[:, cov] - want[:, cov]).abs().max()) <= 1e-3
+
+
+def _permute_case(seed):
+    """Tables of a smooth rotation-and-scale map (300 x 260 -> 280 x 330)
+    with a NaN entry in each table, and a tile mask drawn at random."""
+    in_h, in_w, out_h, out_w = 300, 260, 280, 330
+    ys, xs = np.meshgrid(np.arange(out_h), np.arange(out_w), indexing="ij")
+    s, c = np.sin(0.1), np.cos(0.1)
+    R = np.clip(np.round(0.9 * (s * xs + c * ys) + 3.0), 0, in_h - 1)
+    C = np.clip(np.round(0.9 * (c * xs - s * ys) + 20.0), 0, in_w - 1)
+    t = tpm.build_tables(R.astype(np.int64), C.astype(np.int64), in_h, in_w)
+    c1, r = t.c1.copy(), t.r.copy()
+    c1[7, 9] = np.nan
+    r[11, 13] = np.nan
+    rng = np.random.default_rng(seed)
+    m2 = rng.integers(0, 2, size=(-(-out_w // 8), -(-out_h // 128)),
+                      dtype=np.int64).astype(np.int32)
+    return in_h, in_w, c1, r, m2
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_permute2d_kernel_matches_plain(cuda_device, dtype, masked):
+    """Bit-equal at consumed coordinates (the outputs of masked-on tiles),
+    NaN table entries included."""
+    in_h, in_w, c1, r, m2 = _permute_case(5)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(-2**31, 2**31 - 1, (3, in_h, in_w), generator=g,
+                      dtype=torch.int64).to(torch.int32).view(dtype)
+    dev = cuda_device
+    x, c1, r = x.to(dev), torch.from_numpy(c1).to(dev), \
+        torch.from_numpy(r).to(dev)
+    m2 = torch.from_numpy(m2).to(dev) if masked else None
+    want = tpm.permute2d_plain(x, c1, r).view(torch.int32)
+    got = tpm.permute2d(x, c1, r, mask2=m2)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous()
+    got = got.view(torch.int32)
+    if masked:
+        on = m2.bool().repeat_interleave(8, 0).repeat_interleave(128, 1)
+        on = on[:r.shape[1], :r.shape[0]].t()
+        assert torch.equal(got[:, on], want[:, on])
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("C", [1, 3, 9])

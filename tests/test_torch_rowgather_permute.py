@@ -120,18 +120,18 @@ def test_build_tables_and_masks_bitwise(fill_mode):
     hr, wr, s_sq = 40, 128, 64
     Rf, Cf = _smooth_map(hr, wr, s_sq, s_sq, rot=0.05, scale=0.5)
     fwd_j = jpm.build_tables(Rf, Cf, s_sq, s_sq)
-    fwd_t = tpm.build_tables(Rf, Cf, s_sq, s_sq)
     Rr, Cr = _smooth_map(s_sq, s_sq, hr, wr, rot=-0.05, scale=0.6)
     ret_j = jpm.build_tables(Rr, Cr, hr, wr)
-    ret_t = tpm.build_tables(Rr, Cr, hr, wr)
     tgt = np.zeros((hr, wr), bool)
     tgt[5:30, 10:90] = True
     for k_rot in (0, 1):
+        # The JAX package's (tile_ok, fwd1_ok, fwd2_ok, ret1_ok, ret2_ok):
+        # the one-pass permute2d takes no first-pass masks.
         mj = jpm.build_permute_masks(tgt, fwd_j, ret_j, hr, wr, s_sq, k_rot,
                                      48, 64)
-        mt = tpm.build_permute_masks(tgt, fwd_t, ret_t, hr, wr, s_sq, k_rot,
-                                     48, 64)
-        for a, b in zip(mj, mt):
+        mt = tpm.build_permute_masks(tgt, hr, wr, s_sq, k_rot, 48, 64)
+        assert len(mt) == 3
+        for a, b in zip((mj[0], mj[2], mj[4]), mt):
             np.testing.assert_array_equal(a, b)
 
 
@@ -156,7 +156,6 @@ def test_permute2d_bitwise_at_consumed(rng, masked):
         mask2=None if m2 is None else jnp.asarray(m2)))
     got = tpm.permute2d(
         torch.from_numpy(x), torch.from_numpy(t.c1), torch.from_numpy(t.r),
-        mask1=None if m1 is None else torch.from_numpy(m1),
         mask2=None if m2 is None else torch.from_numpy(m2)).numpy()
     cols = slice(0, 8) if masked else slice(None)
     np.testing.assert_array_equal(got[:, :, cols], want[:, :, cols])
@@ -164,3 +163,64 @@ def test_permute2d_bitwise_at_consumed(rng, masked):
     ok = ~t.affected[:, cols]
     np.testing.assert_array_equal(got[:, :, cols][:, ok],
                                   x[:, R, C][:, :, cols][:, ok])
+
+
+def _consumed_masks(r, out_h, out_w, in_h, on2):
+    """Pass masks of a chain: mask2 with the tiles `on2` on (over the
+    transposed [out_w, out_h] output), mask1 with every pass-1 tile that a
+    consumed output reads (row nearest(R[s, l]), lane l) on."""
+    m2 = np.zeros((-(-out_w // 8), -(-out_h // 128)), np.int32)
+    for a, b in on2:
+        m2[a, b] = 1
+    cons = np.repeat(np.repeat(m2 > 0, 8, 0), 128, 1)[:out_w, :out_h].T
+    ri = np.clip((np.clip(np.nan_to_num(r, nan=0.0), 0, in_h - 1) + 0.5)
+                 .astype(np.int64), 0, in_h - 1)
+    lanes = np.broadcast_to(np.arange(out_w), r.shape)
+    m1 = np.zeros((-(-in_h // 8), -(-out_w // 128)), np.int32)
+    m1[ri[cons] // 8, lanes[cons] // 128] = 1
+    return m1, m2, cons
+
+
+@pytest.mark.parametrize("case", ["f32", "f16_pairs", "masked_f32",
+                                  "masked_f16_pairs", "nan_entries",
+                                  "masked_nan_entries", "two_d"])
+def test_permute2d_one_pass_bitwise_vs_jax(rng, case):
+    """The port's one-pass permute2d (its plain version on the CPU) against
+    the JAX package's two-pass permute2d in interpret mode, bit for bit at
+    consumed coordinates: f32 words, int32 words carrying f16 pairs
+    (ops/rect_cost._pack_f16_pairs), a NaN in each table, a 2-D input."""
+    in_h, in_w, out_h, out_w = 40, 36, 30, 140
+    R, C = _smooth_map(out_h, out_w, in_h, in_w, rot=0.08, scale=0.3,
+                       shift=(3.0, 2.0))
+    t = jpm.build_tables(R, C, in_h, in_w)
+    c1, r = t.c1.copy(), t.r.copy()
+    if "nan" in case:
+        c1[5, 7] = np.nan
+        r[3, 9] = np.nan
+        r[4, 130] = np.nan
+    if "f16" in case:
+        h = rng.normal(size=(2, 3, in_h, in_w)).astype(np.float16)
+        x = (h[0].view(np.uint16).astype(np.uint32) << 16
+             | h[1].view(np.uint16).astype(np.uint32)).view(np.int32)
+    elif case == "two_d":
+        x = rng.normal(size=(in_h, in_w)).astype(np.float32)
+    else:
+        x = rng.normal(size=(3, in_h, in_w)).astype(np.float32)
+    m1 = m2 = None
+    cons = np.ones((out_h, out_w), bool)
+    if case.startswith("masked"):
+        m1, m2, cons = _consumed_masks(r, out_h, out_w, in_h,
+                                       [(0, 0), (3, 0), (17, 0)])
+    want = np.asarray(jpm.permute2d(
+        jnp.asarray(x), jnp.asarray(c1), jnp.asarray(r), interpret=True,
+        mask1=None if m1 is None else jnp.asarray(m1),
+        mask2=None if m2 is None else jnp.asarray(m2)))
+    got = tpm.permute2d(
+        torch.from_numpy(x), torch.from_numpy(c1), torch.from_numpy(r),
+        mask2=None if m2 is None else torch.from_numpy(m2))
+    assert got.is_contiguous()
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.int32)[..., cons],
+                                  want.view(np.int32)[..., cons])
+    assert cons.sum() > 0
