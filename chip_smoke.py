@@ -25,7 +25,9 @@ Phases, in order (any failure exits non-zero before the last line):
    of the f32, full and gfwd scenes (K=4 candidates at the window corner),
    and the affine row gather bit-equal at the census path's largest row
    launch (K=4 x 11 columns), both with NaN positions and positions 20 px
-   outside [0, W-1];
+   outside [0, W-1], and in its rows launches of the census path's sparse
+   (K=4 x 9 rows x 9 columns) and full (K=1 x 11 x 11) passes against the
+   stack of one-row plain calls;
 4. nine paths on the 640x480, 7-camera bench scene, each driven through
    compute_depthmap with the kernel counts set to 0 just before and read
    just after, each held to a launch count > 0 for every kernel it runs
@@ -51,7 +53,9 @@ Phases, in order (any failure exits non-zero before the last line):
    call (CUDA-graph replay between CUDA events, so host dispatch is
    outside the span) beside its bound (permute2d also beside the
    two-pass chain it replaced; the fused cost at the full pass's K=1
-   and the cull pass's K=4 shapes);
+   and the cull pass's K=4 shapes; the affine gather at one row and at
+   the census path's rows launches, beside its path-level bound per
+   launch, counted by its wrapper from each launch's shape);
 6. the `kernels` JSON line, the card line, and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -283,15 +287,19 @@ def profile_path(torch, job, card, run_s, label):
     used).  The device events are summed straight from the profiler's raw
     events: key_averages() post-processes every event in Python, minutes
     for a run of 10^5 launches.  Returns {port kernel: (device ms,
-    launches)} of that run."""
+    launches)} of that run and the wrappers' tallies of it ({kernel:
+    (launches, bytes moved)} for the kernels whose wrappers sum bytes)."""
     from torch.profiler import ProfilerActivity, profile
+    from gipuma_tpu_torch import kernels
     from gipuma_tpu_torch.pipeline import run_prepared_job
     torch.cuda.synchronize()
+    kernels.reset_counts()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_prepared_job(job)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    moved = {k: (kernels.counts[k], b) for k, b in kernels.bytes_moved.items()}
     by_name = {}
     for ev in prof.profiler.kineto_results.events():
         # Device-side events only (kernels, memcpy/memset).
@@ -312,7 +320,7 @@ def profile_path(torch, job, card, run_s, label):
     if dev_total <= 0:
         log(json.dumps({"metric": "path_profile", "path": label,
                         "card": card, "device_time": "not measured"}))
-        return {}
+        return {}, moved
     log(json.dumps({
         "metric": "path_profile", "path": label, "card": card,
         "wall_s_profiled": wall, "device_s": dev_total / 1e6,
@@ -323,7 +331,7 @@ def profile_path(torch, job, card, run_s, label):
                          for k, (ms, n) in port.items()},
         "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                 for us, k, c in rows[:12]]}))
-    return port
+    return port, moved
 
 
 def bench_inputs(torch, scene, jparams, device, v0: int = 0):
@@ -462,6 +470,7 @@ def main() -> int:
                                                     permute2d_plain)
         from gipuma_tpu_torch.ops.rowgather import (
             row_gather_affine_cuda, row_gather_affine_plain,
+            row_gather_affine_rows_cuda, row_gather_affine_rows_plain,
             row_gather_lerp_cuda, row_gather_lerp_plain,
             row_gather_nearest_cuda, row_gather_nearest_plain)
         from gipuma_tpu_torch.ops.sampling import (bilinear_sample_cuda,
@@ -744,6 +753,26 @@ def main() -> int:
                        f"{tuple(a_src.shape)} -> {tuple(got.shape)}",
             "row_gather_affine"))
         del want, got
+    # The rows launches of the census path on view 0: all window rows of
+    # the sparse pass (K=4 x 9 rows x 9 columns, the planes above) and of
+    # the full pass (K=1 x 11 x 11, with a NaN plane), against the stack of
+    # one-row plain calls.
+    a_abc1 = abc_of(1, "pair").clone()
+    a_abc1[0, 0, 3, 5] = float("nan")
+    cull_hrad = jparams.cull_box // 2
+    rows_cases = {   # label -> (abc, dxs = dys)
+        "sparse": (a_abc, tuple(range(-cull_hrad, cull_hrad + 1))),
+        "full": (a_abc1, a_dxs)}
+    for label, (rabc, rdx) in rows_cases.items():
+        want = row_gather_affine_rows_plain(a_src, rabc, rdx, rdx,
+                                            scene.disp_bounds[v0])
+        got = row_gather_affine_rows_cuda(a_src, rabc, rdx, rdx,
+                                          scene.disp_bounds[v0])
+        max_err_affine = max(max_err_affine, bit_equal(
+            got, want, f"rows launch ({label}): K={rabc.shape[0]} x "
+                       f"{len(rdx)} rows x {len(rdx)} columns -> "
+                       f"{tuple(got.shape)}", "row_gather_affine"))
+        del want, got
     torch.cuda.synchronize()
 
     # ---- 4. the paths -----------------------------------------------------
@@ -793,7 +822,7 @@ def main() -> int:
         t0 = time.perf_counter()
         jobs[label] = prepare_job(images, Ps, paths[label], device=device)
         prep_s[label] = time.perf_counter() - t0
-    prof = {}
+    prof, moved = {}, {}
     mp = h * w / 1e6
     for label in (lb for lb in paths if lb != "census_exact"):
         # A warm run of the path (the pyramid's first run resolves its
@@ -810,8 +839,8 @@ def main() -> int:
                         "MP_per_s": mp / res2.runtime_s,
                         "median_rel_err": runs[label]["med"],
                         "launches": dict(kernels.counts)}))
-        prof[label] = profile_path(torch, jobs[label], card,
-                                   res2.runtime_s, label)
+        prof[label], moved[label] = profile_path(torch, jobs[label], card,
+                                                 res2.runtime_s, label)
         stamp(f"profiled {label}")
 
     def per_launch_ms(label, name):
@@ -998,6 +1027,13 @@ def main() -> int:
         a_src, a_abc, a_dxs, float(corner), a_db, corner))
     a_plain = graph_ms(lambda: row_gather_affine_plain(
         a_src, a_abc, a_dxs, float(corner), a_db, corner), reps=3, rounds=3)
+
+    def path_bound_ms(label):
+        # Per launch of the profiled run: the bytes its launches must move,
+        # summed by the wrapper from each launch's own shape, at HBM rate.
+        n, nbytes = moved[label].get("row_gather_affine", (0, 0))
+        return nbytes / n / HBM_BPS * 1e3 if n else "not measured"
+
     a_line = {"kernel": "row_gather_affine", "card": card,
               "shape": f"src {tuple(a_src.shape)} int32, abc "
                        f"{tuple(a_abc.shape)}, {len(a_dxs)} columns",
@@ -1007,8 +1043,37 @@ def main() -> int:
               "launches_unfused": runs["unfused"]["launches"][
                   "row_gather_affine"],
               "main_path_ms_per_launch": per_launch_ms("census",
-                                                       "row_gather_affine")}
+                                                       "row_gather_affine"),
+              "main_path_bound_ms_per_launch": path_bound_ms("census"),
+              "unfused_ms_per_launch": per_launch_ms("unfused",
+                                                     "row_gather_affine"),
+              "unfused_bound_ms_per_launch": path_bound_ms("unfused")}
     log(json.dumps(a_line))
+
+    # The rows launches of the kernel phase, beside the same rows as one-row
+    # launches of this kernel.  Bound: abc once, every row's output, the
+    # source once.
+    rows_lines = {}
+    for label, (rabc, rdx) in rows_cases.items():
+        rK = rabc.shape[0]
+        r_bytes = 4 * (3 * rK * ah * aw + len(rdx) * rK * len(rdx) * aC
+                       * ah * aw + a_src.numel())
+        r_ms = graph_ms(lambda: row_gather_affine_rows_cuda(
+            a_src, rabc, rdx, rdx, a_db), reps=5)
+        r_one = graph_ms(lambda: [row_gather_affine_cuda(
+            a_src, rabc, rdx, float(d), a_db, d) for d in rdx], reps=2)
+        r_plain = graph_ms(lambda: row_gather_affine_rows_plain(
+            a_src, rabc, rdx, rdx, a_db), reps=1, rounds=3)
+        rows_lines[label] = {
+            "kernel": "row_gather_affine", "launch": f"rows ({label})",
+            "card": card,
+            "shape": f"K={rK} x {len(rdx)} rows x {len(rdx)} columns, src "
+                     f"{tuple(a_src.shape)} -> "
+                     f"{(len(rdx), rK * len(rdx), aC, ah, aw)}",
+            "ms": r_ms, "one_row_launches_ms": r_one, "plain_ms": r_plain,
+            "library_ms": None, "bound_ms": r_bytes / HBM_BPS * 1e3,
+            "bound_by": "bytes"}
+        log(json.dumps(rows_lines[label]))
 
     # ---- 6. summary lines -----------------------------------------------
     stamp("summary")
@@ -1063,7 +1128,13 @@ def main() -> int:
          "launches": launches["row_gather_affine"],
          "max_abs_err": max_err_affine, "ms": a_ms, "plain_ms": a_plain,
          "bound_ms": a_line["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "main_path_ms_per_launch": a_line["main_path_ms_per_launch"],
+         "main_path_bound_ms_per_launch": a_line[
+             "main_path_bound_ms_per_launch"],
+         "rows_launches": {k: {f: ln[f] for f in (
+             "shape", "ms", "one_row_launches_ms", "plain_ms", "bound_ms")}
+             for k, ln in rows_lines.items()}},
     ]
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)

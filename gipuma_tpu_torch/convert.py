@@ -19,6 +19,7 @@ from .models.patchmatch import PMState
 from .ops import checkerboard as cb
 from .ops.cost import ScenePack
 from .ops.rect_cost import RectScene
+from .pipeline import resolve_device
 
 _ENUMS = {"algorithm": MatchingAlgorithm, "cost_comb": CostCombination}
 
@@ -90,8 +91,10 @@ def _tensor(a, device, name):
 _EXACT_FIELDS = ("ref_img", "ref_gx", "ref_gy", "src")
 
 
-def scene_pack_from_numpy(tree: Mapping, device="cpu") -> ScenePack:
-    """A dict of numpy arrays keyed by ScenePack field -> ScenePack.
+def scene_pack_from_numpy(tree: Mapping, device=None) -> ScenePack:
+    """A dict of numpy arrays keyed by ScenePack field -> ScenePack, on
+    ``device`` (None: the card, as every entry point; pipeline.
+    resolve_device).
 
     The exact path's arrays carry across when the tree has them at full
     size: the PaddedEO planes (dicts from to_numpy_tree), and ``src``
@@ -99,6 +102,7 @@ def scene_pack_from_numpy(tree: Mapping, device="cpu") -> ScenePack:
     [V, NB, 3C, H, 128] by joining the blocks and cropping to W.  A lite
     JAX scene (placeholder arrays there) gives a lite ScenePack; keys of
     the JAX package's TPU layouts (the 4-tap ``src`` table) are ignored."""
+    device = resolve_device(device)
     kw = {}
     for f in ScenePack._fields:
         if f in _EXACT_FIELDS:
@@ -124,12 +128,14 @@ def scene_pack_from_numpy(tree: Mapping, device="cpu") -> ScenePack:
     return ScenePack(**kw)
 
 
-def rect_scene_from_numpy(tree: Mapping, device="cpu") -> RectScene:
-    """A JAX RectScene given as a dict of numpy arrays -> the port's.
+def rect_scene_from_numpy(tree: Mapping, device=None) -> RectScene:
+    """A JAX RectScene given as a dict of numpy arrays -> the port's, on
+    ``device`` (None: the card).
 
     tree["base"] is the ScenePack dict; the other keys are RectScene
     fields (None or absent optional fields stay None).  ``spans`` keeps
     its static shape; ``rot_k_host`` is filled from rot_k."""
+    device = resolve_device(device)
     kw = {"base": scene_pack_from_numpy(tree["base"], device)}
     for f in RectScene._fields:
         if f in ("base", "cull", "rot_k_host"):
@@ -150,8 +156,10 @@ def rect_scene_from_numpy(tree: Mapping, device="cpu") -> RectScene:
 
 
 def state_from_numpy(planes, cost, generator: torch.Generator | None = None,
-                     device="cpu") -> PMState:
-    """Engine state from numpy: planes [H, W, 4], cost [H, W]."""
+                     device=None) -> PMState:
+    """Engine state from numpy: planes [H, W, 4], cost [H, W], on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     return PMState(
         planes=torch.as_tensor(np.array(planes, np.float32), device=device),
         cost=torch.as_tensor(np.array(cost, np.float32), device=device),

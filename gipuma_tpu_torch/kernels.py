@@ -9,7 +9,10 @@ are ``NVCC_FLAGS`` and the source's own ``SOURCE_FLAGS`` (``nvcc_command``
 gives the whole command).
 
 ``counts`` holds one plain integer per kernel: a wrapper adds one exactly
-where it launches its kernel.  ``reset_counts`` sets them all to 0.
+where it launches its kernel.  ``bytes_moved`` sums, per launch, the bytes
+a launch must move (each input read once, each output written once) for
+the kernels whose wrappers count them (the affine gather).
+``reset_counts`` sets both to 0.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ SOURCE_FLAGS = {
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
           "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
           "permute2d": 0}
+bytes_moved = {"row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -61,8 +65,9 @@ build_log: dict[str, str] = {}
 
 
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    for d in (counts, bytes_moved):
+        for k in d:
+            d[k] = 0
 
 
 def nvcc_path() -> str:

@@ -8,8 +8,9 @@ The window cost on the rect grid follows the scene's layout, as in the
 JAX package: the fused window_grads kernel (ops/sdg_fused.py) on the
 default packed layout, or the unfused window_grads cost and census, whose
 sampled window rows are affine row gathers (ops/rowgather.
-row_gather_affine), or the full-channel, grad_fwd and f32 scans over the
-window offsets, one lerp row gather per offset.
+row_gather_affine_rows: all window rows of a pass and view in one launch),
+or the full-channel, grad_fwd and f32 scans over the window offsets, one
+lerp row gather per offset.
 
 The JAX package scans the view axis with ``lax.scan``; here the view loop
 is a Python loop with one launch of each kernel per pass and view.  Per-
@@ -28,7 +29,8 @@ from ..geometry import transforms as T
 from . import checkerboard as cb
 from .cost import ScenePack, _census_bits, combine_view_costs
 from .permute2d import permute2d
-from .rowgather import _to_i32, row_gather, row_gather_affine, row_gather_batch
+from .rowgather import (_to_i32, row_gather, row_gather_affine,
+                        row_gather_affine_rows, row_gather_batch)
 from .sdg_fused import (_clip, fused_sdg_cost_batch, window_geometry,
                         window_grads_cost)
 
@@ -301,10 +303,10 @@ def _rect_pair_cost_batch_sdg(ref_chw, src_chw, abc_k,
     """window_grads path: src_chw holds only the image channels ([C]
     packed tap words, or f32), and both source gradients come from
     neighbouring window samples (ops/sdg_fused.window_grads_cost).  Packed
-    words with fused_window_cost take the fused kernel; otherwise each
-    sampled window row is one gather launch serving all K candidates x E
-    columns — row_gather_affine for packed words, the lerp gather of
-    materialized positions for f32."""
+    words with fused_window_cost take the fused kernel; otherwise packed
+    words take one row_gather_affine_rows launch for all sampled window
+    rows, K candidates and E columns, and f32 one lerp gather of
+    materialized positions per window row."""
     dev = ref_chw.device
     affine = src_chw.dtype == torch.int32
     db = _default_bounds(disp_bounds, dev)
@@ -316,18 +318,17 @@ def _rect_pair_cost_batch_sdg(ref_chw, src_chw, abc_k,
     K = abc_k.shape[0]
     _, _, xs_ext, ys_ext = window_geometry(params)
 
-    def gather_row(dy: int) -> torch.Tensor:
-        if affine:
-            smp = row_gather_affine(src_chw, abc_k, xs_ext, float(dy),
-                                    disp_bounds=db, src_dy=dy)
-        else:
-            smp = row_gather_batch(
-                src_chw, _row_positions(abc_k, xs_ext, dy, disp_bounds),
-                src_dy=dy)
-        return smp.reshape(K, len(xs_ext), ch // 3, hr, wr)
-
-    return window_grads_cost(ref_chw, abc_k, params,
-                             [gather_row(int(dy)) for dy in ys_ext])
+    shape = (K, len(xs_ext), ch // 3, hr, wr)
+    dys = [int(dy) for dy in ys_ext]
+    if affine:
+        smps = row_gather_affine_rows(src_chw, abc_k, xs_ext, dys,
+                                      disp_bounds=db).reshape(
+                                          len(dys), *shape).unbind(0)
+    else:
+        smps = [row_gather_batch(
+            src_chw, _row_positions(abc_k, xs_ext, dy, disp_bounds),
+            src_dy=dy).reshape(shape) for dy in dys]
+    return window_grads_cost(ref_chw, abc_k, params, list(smps))
 
 
 def _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k,
@@ -338,11 +339,12 @@ def _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k,
     increment 1, center excluded; the cost is the number of differing
     3-way sign classes between the reference window (against its center)
     and the warped source samples (against the warped center), on channel
-    means.  One gather launch per window row serves all K candidates x
-    box_hsize columns, plus one for the warped center: row_gather_affine
-    on packed image words, the lerp gather on an f32 layout.  The counts
-    are whole numbers, so adding a row's columns at once gives the JAX
-    package's per-offset sums exactly."""
+    means.  On packed image words one row_gather_affine_rows launch
+    serves every window row, K candidates x box_hsize columns, and one
+    row_gather_affine launch the warped center; on an f32 layout each
+    window row is one lerp gather launch.  The counts are whole numbers,
+    so adding a row's columns at once gives the JAX package's per-offset
+    sums exactly."""
     ch, hr, wr = ref_chw.shape
     dev = ref_chw.device
     K = abc_k.shape[0]
@@ -372,8 +374,16 @@ def _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k,
     cols = (torch.arange(wr, device=dev)[None, :]
             + torch.tensor(xs_all, device=dev)[:, None]).clamp(0, wr - 1)
     acc = torch.zeros((K, hr, wr), dtype=torch.float32, device=dev)
-    for dy in range(-vr, vr + 1):
-        smp = gather_row(dy, xs_all)                             # [K, E, Hr, Wr]
+    dys = list(range(-vr, vr + 1))
+    if packed:   # every window row in one launch: [R, K, E, C, Hr, Wr]
+        stack = row_gather_affine_rows(src_img, abc_k, xs_all, dys,
+                                       disp_bounds=db).reshape(
+                                           len(dys), K, len(xs_all), C, hr, wr)
+    for t, dy in enumerate(dys):
+        if packed:
+            smp = stack[t].mean(dim=2)                       # [K, E, Hr, Wr]
+        else:
+            smp = gather_row(dy, xs_all)
         ref_w = ref_mean[(rows + dy).clamp(0, hr - 1)][:, cols]  # [Hr, E, Wr]
         bit_l = _census_bits(ref_mean, ref_w.permute(1, 0, 2), eps)
         bit_r = _census_bits(src_center, smp, eps)               # [K, E, Hr, Wr]

@@ -21,7 +21,8 @@ a selection along the last axis of a [C, H, W] source:
   gx = 2*(v1 - v0) of the image word (GFWD).
 * affine (``row_gather_affine``, ``csrc/rowgather_affine.cu``): PACKED lerp
   at positions computed from per-candidate affine disparity fields,
-  x = (j + dx) - clip(a*(j + dx) + b*(i + dy) + c, lo, hi).
+  x = (j + dx) - clip(a*(j + dx) + b*(i + dy) + c, lo, hi);
+  ``row_gather_affine_rows`` gathers several window rows in one launch.
 
 ``src_dy`` (port-only) reads source row clip(i + src_dy, 0, H-1) for
 output row i: the edge-replicated row shift the JAX callers make by
@@ -246,19 +247,26 @@ def row_gather_lerp_cuda(src_chw: torch.Tensor, x: torch.Tensor,
     return out
 
 
-# Most column offsets the affine kernel takes (they ride in its launch
-# arguments).
+# Most column offsets and window rows one affine launch takes (they ride
+# in its launch arguments); the rows wrapper splits longer row lists.
 MAX_DXS = 64
+MAX_ROWS = 64
+# gtt_row_gather_affine_rows(src, abc, db, out, dxs, E, dys, src_dys, R, K,
+# C, H, W, Ws, stream).
+AFFINE_ARGTYPES = ([ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def row_gather_affine_cuda(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
-                           dy: float, disp_bounds: torch.Tensor,
-                           src_dy: int = 0) -> torch.Tensor:
-    """Launch csrc/rowgather_affine.cu: same contract as the plain version;
-    disp_bounds (float32 [2] on the card) is read in-kernel."""
+def _affine_launch(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
+                   dys, src_dys, disp_bounds: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/rowgather_affine.cu for window rows (dys[r], src_dys[r]):
+    [R, K*E, C, H, Ws] f32.  Each launch adds one to the count and the
+    bytes it must move (abc and the source read once, the output written
+    once) to ``kernels.bytes_moved``."""
     C, H, W = src_chw.shape
     K, three, M, Ws = abc.shape
-    E = len(dxs)
+    E, R = len(dxs), len(dys)
     if (src_chw.dtype != torch.int32 or abc.dtype != torch.float32
             or three != 3 or disp_bounds.dtype != torch.float32
             or disp_bounds.numel() != 2):
@@ -267,26 +275,69 @@ def row_gather_affine_cuda(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
                          f"{src_chw.dtype} {tuple(src_chw.shape)}, "
                          f"{abc.dtype} {tuple(abc.shape)}, "
                          f"{disp_bounds.dtype} {tuple(disp_bounds.shape)}")
-    if not 1 <= E <= MAX_DXS or W < 2:
-        raise ValueError(f"row_gather_affine: 1..{MAX_DXS} column offsets and "
-                         f"W >= 2, got {E}, W={W}")
+    if not 1 <= E <= MAX_DXS or W < 2 or R < 1:
+        raise ValueError(f"row_gather_affine: 1..{MAX_DXS} column offsets, "
+                         f"W >= 2 and a window row, got {E}, W={W}, R={R}")
     _check_grid("row_gather_affine", src_chw, abc, M, K)
     if (disp_bounds.device != abc.device
             or not disp_bounds.is_contiguous()):
         raise ValueError("row_gather_affine: disp_bounds contiguous on the "
                          "inputs' device")
-    out = torch.empty((K * E, C, H, Ws), dtype=torch.float32,
+    out = torch.empty((R, K * E, C, H, Ws), dtype=torch.float32,
                       device=abc.device)
     dx_arr = (ctypes.c_int * E)(*(int(d) for d in dxs))
-    fn = _cuda_fn("rowgather_affine", "gtt_row_gather_affine",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                  + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(kernels.ptr(src_chw), kernels.ptr(abc), kernels.ptr(disp_bounds),
-            kernels.ptr(out), dx_arr, E, K, C, H, W, Ws, int(src_dy),
-            ctypes.c_float(float(dy)), kernels.stream_ptr(abc.device))
-    kernels.check(rc, "row_gather_affine")
-    kernels.counts["row_gather_affine"] += 1
+    fn = _cuda_fn("rowgather_affine", "gtt_row_gather_affine_rows",
+                  AFFINE_ARGTYPES)
+    for r0 in range(0, R, MAX_ROWS):
+        n = min(MAX_ROWS, R - r0)
+        dy_arr = (ctypes.c_float * n)(*(float(d) for d in dys[r0:r0 + n]))
+        sdy_arr = (ctypes.c_int * n)(*(int(d) for d in src_dys[r0:r0 + n]))
+        rc = fn(kernels.ptr(src_chw), kernels.ptr(abc),
+                kernels.ptr(disp_bounds), kernels.ptr(out[r0:r0 + n]),
+                dx_arr, E, dy_arr, sdy_arr, n, K, C, H, W, Ws,
+                kernels.stream_ptr(abc.device))
+        kernels.check(rc, "row_gather_affine")
+        kernels.counts["row_gather_affine"] += 1
+        kernels.bytes_moved["row_gather_affine"] += 4 * (
+            3 * K * H * Ws + n * K * E * C * H * Ws + C * H * W)
     return out
+
+
+def row_gather_affine_cuda(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
+                           dy: float, disp_bounds: torch.Tensor,
+                           src_dy: int = 0) -> torch.Tensor:
+    """Launch csrc/rowgather_affine.cu for one window row: same contract as
+    the plain version; disp_bounds (float32 [2] on the card) is read
+    in-kernel."""
+    return _affine_launch(src_chw, abc, dxs, [dy], [src_dy], disp_bounds)[0]
+
+
+def row_gather_affine_rows_plain(src_chw: torch.Tensor, abc: torch.Tensor,
+                                 dxs, dys, disp_bounds: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Plain torch version of the rows launch: the stack of the one-row
+    plain calls at window rows dys (integers; each row's source shift is
+    its dy), [R, K*E, C, H, Ws]."""
+    return torch.stack([row_gather_affine_plain(src_chw, abc, dxs, float(dy),
+                                                disp_bounds, int(dy))
+                        for dy in dys])
+
+
+def row_gather_affine_rows_cuda(src_chw: torch.Tensor, abc: torch.Tensor,
+                                dxs, dys, disp_bounds: torch.Tensor
+                                ) -> torch.Tensor:
+    """Launch csrc/rowgather_affine.cu once for the window rows dys: same
+    contract as the plain version."""
+    return _affine_launch(src_chw, abc, dxs, [float(d) for d in dys],
+                          [int(d) for d in dys], disp_bounds)
+
+
+def row_gather_affine_staged_rows(R: int, C: int, W: int) -> int:
+    """Source rows the affine kernel stages in a block's shared memory for R
+    window rows of a [C, H, W] source; 0 when it reads global memory."""
+    fn = _cuda_fn("rowgather_affine", "gtt_row_gather_affine_staged_rows",
+                  [ctypes.c_int] * 3)
+    return fn(R, C, W)
 
 
 _FNS: dict = {}
@@ -358,3 +409,16 @@ def row_gather_affine(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
                                        src_dy)
     return row_gather_affine_cuda(src_chw, abc, dxs, dy,
                                   disp_bounds.contiguous(), src_dy)
+
+
+def row_gather_affine_rows(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
+                           dys, disp_bounds: torch.Tensor) -> torch.Tensor:
+    """row_gather_affine for the window rows dys (integers) in one launch,
+    each row's source shifted by its dy (src_dy = dy, as the census and
+    unfused costs read their window rows): [R, K*E, C, H, Ws], row r equal
+    to row_gather_affine(..., dys[r], disp_bounds=..., src_dy=dys[r])."""
+    if abc.device.type == "cpu":
+        return row_gather_affine_rows_plain(src_chw, abc, dxs, dys,
+                                            disp_bounds)
+    return row_gather_affine_rows_cuda(src_chw, abc, dxs, dys,
+                                       disp_bounds.contiguous())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the port's rect and pyramid paths, two trees in turns.
+"""Device time of the port's paths, two trees in turns.
 
     python3 scripts/port_path_ab.py ROOT_A ROOT_B [--paths rect,pyramid]
 
@@ -8,11 +8,13 @@ unpacked beside the current tree, and the current tree).  Each runs in
 its own interpreter, importing gipuma_tpu_torch and chip_smoke.py from its
 root, in the order A, B, B, A.  Per path: the scene is prepared
 (chip_smoke.scene_setup's bench scene and configuration), one warm run is
-made, then a timed run (host wall, runtime_s) and a profiled run
-(torch.profiler, the device's activity only): device seconds, busy share
-of the timed run, device launches in all and by kind (the port's kernels,
-copy kernels), and the kernels with the most device time.  Prints one JSON
-line per (tree, path, turn), then the card line.
+made, then a timed run (host wall, runtime_s, the peak of allocated
+device memory) and a profiled run (torch.profiler, the device's activity
+only): device seconds, busy share of the timed run, device launches in
+all and by kind (the port's kernels, copy kernels), and the kernels with
+the most device time.  Any chip_smoke.py path can be named (census and
+unfused run the affine gather).  Prints one JSON line per (tree, path,
+turn), then the card line.
 """
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ def child(root: str, tag: str, paths: list[str]) -> None:
         run_prepared_job(job)
         torch.cuda.synchronize()
         kernels.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run_prepared_job(job)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = dict(kernels.counts)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_prepared_job(job)
@@ -57,11 +61,13 @@ def child(root: str, tag: str, paths: list[str]) -> None:
                 tot, n = by_name.get(ev.name(), (0.0, 0))
                 by_name[ev.name()] = (tot + us, n + 1)
         dev_us = sum(us for us, _ in by_name.values())
-        port = ("row_gather_nearest_kernel", "sdg_fused_", "permute2d_kernel")
+        port = ("row_gather_nearest_kernel", "sdg_fused_", "permute2d_kernel",
+                "row_gather_affine_kernel")
         rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         print(json.dumps({
             "tree": tag, "path": label, "run_s": run_s,
-            "runtime_s": res.runtime_s, "device_s": dev_us / 1e6,
+            "runtime_s": res.runtime_s, "peak_alloc_gb": peak_gb,
+            "device_s": dev_us / 1e6,
             "busy_share": dev_us / 1e6 / run_s,
             "device_launches": sum(n for _, n in by_name.values()),
             "copy_launches": sum(n for k, (_, n) in by_name.items()

@@ -67,7 +67,8 @@ def setup():
     jstate = jinit(jscene, jax.random.PRNGKey(7))
     return dict(jp=jp, jscene=jscene, jstate=jstate,
                 tp=params_from_dict(dataclasses.asdict(jp)),
-                tscene=rect_scene_from_numpy(to_numpy_tree(jscene)))
+                tscene=rect_scene_from_numpy(to_numpy_tree(jscene),
+                                             device="cpu"))
 
 
 def _compare(jnew, tnew, parity, exact):
@@ -95,7 +96,8 @@ def test_close_propagation_sweep(setup):
     jsweep = jax.jit(lambda s, sc: jpm.axial_propagation_sweep(
         s, sc, setup["jp"], parity, 1, cost_fn=j_cost))
     jnew = jsweep(setup["jstate"], setup["jscene"])
-    st = state_from_numpy(setup["jstate"].planes, setup["jstate"].cost)
+    st = state_from_numpy(setup["jstate"].planes, setup["jstate"].cost,
+                          device="cpu")
     tnew = tpm.axial_propagation_sweep(st, setup["tscene"], setup["tp"],
                                        parity, 1, t_cost)
     changed = ~np.all(np.asarray(jnew.planes)
@@ -117,7 +119,7 @@ def test_refinement_sweep_with_jax_uniforms(setup):
     R = len(jp.refinement_schedule())
     u = np.array(jax.random.uniform(kz, (R, h, w // 2), jnp.float32))
     u_n = np.array(jax.random.uniform(kn, (R, h, w // 2, 3), jnp.float32))
-    st = state_from_numpy(js.planes, js.cost)
+    st = state_from_numpy(js.planes, js.cost, device="cpu")
     tnew = tpm.refinement_sweep(st, setup["tscene"], setup["tp"], parity,
                                 t_cost, uniforms=(torch.from_numpy(u),
                                                   torch.from_numpy(u_n)))
@@ -127,8 +129,8 @@ def test_refinement_sweep_with_jax_uniforms(setup):
 def test_finalize_matches(setup):
     js = setup["jstate"]
     jd, jn, jc = jpm.finalize(js, setup["jscene"])
-    td, tn, tc = tpm.finalize(state_from_numpy(js.planes, js.cost),
-                              setup["tscene"])
+    td, tn, tc = tpm.finalize(
+        state_from_numpy(js.planes, js.cost, device="cpu"), setup["tscene"])
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5,

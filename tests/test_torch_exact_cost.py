@@ -84,7 +84,7 @@ def test_build_scene_matches(setup):
             np.testing.assert_allclose(v.numpy(), np.asarray(getattr(js, f)),
                                        rtol=1e-5, atol=1e-6, err_msg=f)
     # convert carries the JAX scene across to the same exact-path arrays.
-    cs = scene_pack_from_numpy(to_numpy_tree(js))
+    cs = scene_pack_from_numpy(to_numpy_tree(js), device="cpu")
     assert torch.equal(cs.src, ts.src)
     for f in ("ref_img", "ref_gx", "ref_gy"):
         assert torch.equal(getattr(cs, f).E, getattr(ts, f).E)

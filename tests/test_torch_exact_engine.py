@@ -74,7 +74,7 @@ def setup():
         3.0, 8.0, rig.f, FAKE_BASELINE)
     js = jscene.build_scene(images, rig, [1, 2, 3], jp, 3.0, 8.0)
     tp = params_from_dict(dataclasses.asdict(jp))
-    ts = scene_pack_from_numpy(to_numpy_tree(js))
+    ts = scene_pack_from_numpy(to_numpy_tree(js), device="cpu")
     planes, cost = _random_state(ts, tp, 21)
     jstate = jpm.PMState(planes=jnp.asarray(planes), cost=jnp.asarray(cost),
                          key=jax.random.PRNGKey(3))
@@ -105,7 +105,8 @@ def test_close_propagation_sweep(setup):
         s, sc, jp, parity, 1, cost_fn=j_cost))
     jnew = jsweep(setup["jstate"], setup["js"])
     tnew = tpm.axial_propagation_sweep(
-        state_from_numpy(setup["planes"], setup["cost"]), setup["ts"],
+        state_from_numpy(setup["planes"], setup["cost"], device="cpu"),
+        setup["ts"],
         setup["tp"], parity, 1, t_cost)
     changed = ~np.all(np.asarray(jnew.planes) == setup["planes"], axis=-1)
     assert changed.mean() > 0.05, "the sweep accepted too little"
@@ -130,7 +131,8 @@ def test_sequential_refinement_with_jax_draws(setup, refine_batched):
                                                   (H, W // 2, 3)))
                     for r in range(R)])
     tnew = tpm.refinement_sweep(
-        state_from_numpy(setup["planes"], setup["cost"]), setup["ts"],
+        state_from_numpy(setup["planes"], setup["cost"], device="cpu"),
+        setup["ts"],
         params_from_dict(dataclasses.asdict(jp)), parity, t_cost,
         uniforms=(torch.from_numpy(u), torch.from_numpy(u_n)))
     changed = ~np.all(np.asarray(jnew.planes) == setup["planes"], axis=-1)
@@ -147,7 +149,8 @@ def test_rect_sequential_refinement(setup):
     rs, _ = build_rect_scene(setup["images"], setup["rig"], [1, 2, 3], tp,
                              3.0, 8.0, device="cpu")
     planes, _ = _random_state(setup["ts"], setup["tp"], 5)
-    st = state_from_numpy(planes, np.zeros((H, W), np.float32))
+    st = state_from_numpy(planes, np.zeros((H, W), np.float32),
+                          device="cpu")
     st = st._replace(cost=tpm.init_state(rs, tp, tpm.make_generator(0, "cpu"),
                                          rect_multiview_cost).cost)
     rng = np.random.default_rng(8)

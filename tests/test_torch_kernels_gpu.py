@@ -9,7 +9,8 @@ bit-equal at masked-on coordinates; the fused window cost agrees to 1e-3
 abs at covered pixels (the plain version rounds the weight and the window
 sums in another order, and the kernel contracts to FMA); the bilinear
 sampler and the lerp and affine row gathers are bit-equal (NaN where the
-plain version gives NaN)."""
+plain version gives NaN), the affine gather's rows launch also to the
+stack of its one-row launches."""
 import numpy as np
 import pytest
 import torch
@@ -263,3 +264,70 @@ def test_row_gather_affine_kernel_matches_plain(cuda_device):
         assert got.shape == (2 * len(dxs), 2, 40, 200)
         assert torch.isnan(got[:len(dxs), :, 0, 0]).all()
         assert _same(got, want)
+
+
+# The affine kernel's templated column counts (census 11, 9, 1; unfused
+# one-sided 6, 3 and two-sided 8, 5) and one generic count (7).
+AFFINE_E = [11, 9, 1, 6, 3, 8, 5, 7]
+
+
+def _affine_case(seed, C, K, H, W, Ws, c_lo=-30.0, c_span=90.0):
+    """Packed source [C, H, W] and planes [K, 3, H, Ws] on the CPU: a NaN
+    plane and planes far outside the clamp in the first and last rows."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((C, H, W), generator=g) * 255
+    src = torch.from_numpy(trg.pack_taps(img.numpy()))
+    abc = torch.empty((K, 3, H, Ws))
+    abc[:, 0] = torch.rand((K, H, Ws), generator=g) * 0.6 - 0.3
+    abc[:, 1] = torch.rand((K, H, Ws), generator=g) * 0.4 - 0.2
+    abc[:, 2] = torch.rand((K, H, Ws), generator=g) * c_span + c_lo
+    abc[0, 2, 0, :3] = torch.tensor([float("nan"), 1e4, -1e4])
+    abc[K - 1, 2, H - 1, -3:] = torch.tensor([-1e4, float("nan"), 1e4])
+    return src, abc
+
+
+@pytest.mark.parametrize("E", AFFINE_E)
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("C", [1, 3])
+def test_row_gather_affine_rows_kernel_matches_plain(cuda_device, C, K, E):
+    """The rows launch is bit-equal to its plain version (the stack of the
+    one-row plain calls) and to the stack of one-row launches, NaN
+    included: Ws = 200 (16-byte loads and stores, not a multiple of 128)
+    and 197 (the scalar tail), the scene-like and an open clamp, six
+    window rows in two row groups, one beyond the last source row."""
+    H, W = 24, 256
+    dxs = tuple(range(-(E // 2), E - E // 2))
+    dys = (-5, -2, 0, 2, 7, 30)
+    for Ws in (200, 197):
+        src, abc = _affine_case(E, C, K, H, W, Ws)
+        src, abc = src.to(cuda_device), abc.to(cuda_device)
+        for lo, hi in ((-10.0, 40.0), (-1e9, 1e9)):
+            db = torch.tensor([lo, hi], device=cuda_device)
+            want = trg.row_gather_affine_rows_plain(src, abc, dxs, dys, db)
+            got = trg.row_gather_affine_rows_cuda(src, abc, dxs, dys, db)
+            assert got.shape == (len(dys), K * E, C, H, Ws)
+            assert torch.isnan(got[:, :E, :, 0, 0]).all()
+            assert _same(got, want)
+            one = torch.stack([trg.row_gather_affine_cuda(
+                src, abc, dxs, float(dy), db, dy) for dy in dys])
+            assert _same(got, one)
+
+
+@pytest.mark.parametrize("E", [11, 7])
+def test_row_gather_affine_kernel_global_branch(cuda_device, E):
+    """A [3, 12, 4200] source row (50 KB) exceeds the kernel's shared-
+    memory budget, so it reads the source from global memory; positions
+    reach across the whole row.  Bit-equal, rows and one-row launches."""
+    C, K, H, W, Ws = 3, 2, 12, 4200, 300
+    assert trg.row_gather_affine_staged_rows(6, C, W) == 0
+    assert trg.row_gather_affine_staged_rows(6, C, 256) > 0
+    src, abc = _affine_case(E, C, K, H, W, Ws, c_lo=-3950.0, c_span=4000.0)
+    src, abc = src.to(cuda_device), abc.to(cuda_device)
+    dxs = tuple(range(-(E // 2), E - E // 2))
+    db = torch.tensor([-1e9, 1e9], device=cuda_device)
+    dys = (-3, 0, 4)
+    want = trg.row_gather_affine_rows_plain(src, abc, dxs, dys, db)
+    got = trg.row_gather_affine_rows_cuda(src, abc, dxs, dys, db)
+    assert _same(got, want)
+    got1 = trg.row_gather_affine_cuda(src, abc, dxs, 4.0, db, 4)
+    assert _same(got1, want[2])

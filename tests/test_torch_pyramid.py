@@ -73,7 +73,7 @@ def exact_scene():
     js = jscene.build_scene(images, rig, [1, 2, 3], jp, 3.0, 8.0)
     return dict(gt=gt, jp=jp, js=js,
                 tp=params_from_dict(dataclasses.asdict(jp)),
-                ts=scene_pack_from_numpy(to_numpy_tree(js)))
+                ts=scene_pack_from_numpy(to_numpy_tree(js), device="cpu"))
 
 
 @pytest.mark.parametrize("carry", [False, True])

@@ -10,7 +10,8 @@ the JAX kernel gives NaN.  The affine gather reads a smooth source (at
 most 3 per pixel): XLA also contracts a*x + b*y + c there, which moves a
 position by an ulp of the disparity, and that must stay below 1e-4 of the
 sample.  ``src_dy`` (the port's in-gather row shift) is held against the
-JAX call on the shifted source."""
+JAX call on the shifted source, and so is each row of the many-row
+gather."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,6 +120,27 @@ def test_row_gather_affine(rng, K, c, dxs, dy, bounds):
     assert got.shape == (K * len(dxs), c, H, WS)
     _close(got, want)
     assert np.isnan(got[:len(dxs), :, 0, 0]).all()
+
+
+@pytest.mark.parametrize("K,c,dxs,dys,bounds", [
+    (2, 1, (-2, -1, 0, 1, 2), (-3, 0, 2), (-10.0, 40.0)),
+    (1, 2, (-4, 0, 4), (5, -1), (-1e9, 1e9)),
+])
+def test_row_gather_affine_rows(rng, K, c, dxs, dys, bounds):
+    """The many-row gather (its plain version on the CPU): row r is the JAX
+    row_gather_affine at dy = dys[r] on the source shifted by dys[r]."""
+    src = _smooth_packed(rng, c)
+    abc = _abc(rng, K)
+    got = trg.row_gather_affine_rows(torch.from_numpy(src),
+                                     torch.from_numpy(abc), dxs, dys,
+                                     torch.tensor(bounds)).numpy()
+    assert got.shape == (len(dys), K * len(dxs), c, H, WS)
+    for r, dy in enumerate(dys):
+        want = np.asarray(jrg.row_gather_affine(
+            jnp.asarray(_shifted(src, dy)), jnp.asarray(abc), dxs,
+            jnp.float32(dy), jnp.float32(bounds[0]), jnp.float32(bounds[1]),
+            interpret=True, max_span_blocks=None))
+        _close(got[r], want)
 
 
 def test_row_gather_affine_device_bounds(rng):
