@@ -6,7 +6,8 @@
 
 Phases, in order (any failure exits non-zero before the last line):
 
-1. card name and power limit (nvidia-smi), torch.version.cuda, nvcc version;
+1. card name and power limit (nvidia-smi), torch.version.cuda, nvcc
+   version, whether PIL imports;
 2. build every CUDA kernel of the port from csrc/ (nvcc, one process per
    source, all started together);
 3. kernel vs plain torch version on the card, at the main paths' shapes
@@ -28,7 +29,7 @@ Phases, in order (any failure exits non-zero before the last line):
    outside [0, W-1], and in its rows launches of the census path's sparse
    (K=4 x 9 rows x 9 columns) and full (K=1 x 11 x 11) passes against the
    stack of one-row plain calls;
-4. nine paths on the 640x480, 7-camera bench scene, each driven through
+4. ten paths on the 640x480, 7-camera bench scene, each driven through
    compute_depthmap with the kernel counts set to 0 just before and read
    just after, each held to a launch count > 0 for every kernel it runs
    (permute2d carries every permutation of the rect-family paths)
@@ -46,8 +47,42 @@ Phases, in order (any failure exits non-zero before the last line):
    with fused_window_cost off (the affine gather); (full, gfwd, f32) the
    full-channel, grad_fwd and f32-tap rect layouts at 4 iterations (the
    lerp gather; gfwd prints its error only: gipuma_tpu/config.py records
-   salt-noise failures of that layout at native sampling);
-5. timings, one JSON line each: each path's warm run wall time, and a
+   salt-noise failures of that layout at native sampling); (monolithic)
+   rect at one level with propagation_variant="monolithic", the batch
+   phase's run (d);
+4b. the batch phase, the scripts' path: a 16-camera ring at 640x480
+   (Middlebury dinoSparseRing's view count and size) written to a
+   temporary folder as 8-bit PNGs, one Middlebury par.txt and an
+   analytic depth map per view (gt/depth_NNN.dmb), then
+   (a) scripts/dino.sh's invocation through gipuma_tpu_torch.cli.main
+   (--preset middlebury -blocksize 11 --iterations 8 --n_best 3
+   --all_views --fuse --disp_thresh 0.1 --normal_thresh 30
+   --num_consistent 3 -gt gt/depth_{idx:03d}.dmb; depth [3, 8], angles
+   [0.01, 60] for this rig): the exact path, the sampler;
+   (b) the same with --cost_path rect --pyramid_levels 3
+   --pyramid_fine_iterations 1: permute2d and the fused cost;
+   each held to: a launch count > 0 for every kernel it runs (counts set
+   to 0 just before, read just after); every view's disp.dmb, read back
+   from disk, finite with median relative depth error < 5e-3 on
+   [16:-16, 16:-16] against its own analytic depth; each view's
+   results.txt holding its gt_file and error_rate lines; fused.ply, read
+   back, with >= 0.25*640*480 points at a median |n.X + d| / 5 < 5e-3
+   against the plane; and in (a) the card's fuse_depthmaps of the 16
+   maps against the port's CPU fuse_depthmaps: identical keep masks in
+   the same order (each pixel's index passed as its colour), counts and
+   median plane distances printed;
+   (c) rect_quantize_shapes through run_batch on three reference views
+   with different rect shapes: one shape bucket for all three
+   (info["shape_bucket"]), each view < 5e-3, and the K=4 costs of one
+   candidate set bit-equal between the quantized and the unquantized
+   scene of one view;
+   one `batch` JSON line per run: per-view runtime_s and error, the
+   run's wall, fusion seconds on the card, points, peak allocated
+   memory, kernel launches;
+5. timings, one JSON line each: each path's warm run wall time (after a
+   full garbage collection outside the timed span; with the collector's
+   seconds inside it, the caching allocator's new device allocations and
+   retries, the reserved memory and the live threads in that run), and a
    profiled run's device busy share and device time by kernel; each
    kernel's, its plain version's and the library call's device time per
    call (CUDA-graph replay between CUDA events, so host dispatch is
@@ -62,12 +97,14 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -117,7 +154,8 @@ PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "unfused": ("permute2d", "row_gather_affine"),
                 "full": ("permute2d", "row_gather_lerp"),
                 "gfwd": ("permute2d", "row_gather_lerp"),
-                "f32": ("permute2d", "row_gather_lerp")}
+                "f32": ("permute2d", "row_gather_lerp"),
+                "monolithic": ("permute2d", "sdg_fused_cost")}
 # Paths whose median error is printed but not gated: grad_fwd's in-cell
 # gradient is out of phase at native sampling (gipuma_tpu/config.py).
 UNGATED = ("gfwd",)
@@ -206,6 +244,9 @@ def scene_setup():
         "gfwd": rect.replace(window_grads=False, grad_fwd_pack=True,
                              iterations=LAYOUT_ITERATIONS),
         "f32": rect.replace(pack_taps=False, iterations=LAYOUT_ITERATIONS),
+        # The reference's gipuma_checkerboard_cu schedule: one sweep over
+        # 20 neighbour offsets per parity (batch phase, run (d)).
+        "monolithic": rect.replace(propagation_variant="monolithic"),
     }
     return images, rig, gt, Ps, paths
 
@@ -448,6 +489,279 @@ def permute_bound(torch, x, c1, r, mask2):
     return nbytes / HBM_BPS * 1e3, nbytes
 
 
+# The batch phase's folder: Middlebury dinoSparseRing's view count and
+# image size (scripts/dino_sparse_ring.sh), the bench scene's plane.
+BATCH_VIEWS, BATCH_H, BATCH_W, BATCH_F = 16, 480, 640, 800.0
+# scripts/dino.sh's invocation; only the depth range and the angles are
+# this scene's.
+DINO_FLAGS = ["--preset", "middlebury", "-blocksize", "11",
+              "--iterations", "8", "--n_best", "3", "--all_views",
+              "--skip_existing", "--fuse", "--disp_thresh", "0.1",
+              "--normal_thresh", "30", "--num_consistent", "3",
+              "--depth_min", "3", "--depth_max", "8", "--min_angle", "0.01",
+              "--max_angle", "60"]
+# Run (c)'s reference views: three rect shapes; the first has the largest
+# bucket of the three, so the ledger holds all three at one bucket (a scan
+# that meets a larger view later ratchets up from there).
+QUANT_REFS = (1, 5, 13)
+
+
+def write_batch_folder(np, root: str):
+    """Render the 16-camera ring into `root`: 8-bit PNGs (the port's
+    save_png), one Middlebury par.txt ("name K R t" per view, the count
+    first) and the analytic depth of every view as gt/depth_NNN.dmb.
+    Returns (image names, the plane (n, d))."""
+    from gipuma_tpu_torch.geometry.camera import decompose_projection
+    from gipuma_tpu_torch.io.dmb import write_dmb
+    from gipuma_tpu_torch.io.vis import save_png
+    from gipuma_tpu_torch.utils.synthetic import (intersect_plane,
+                                                  make_ring_P, plane_scene)
+    images, _, _, (n_w, d_w) = plane_scene(
+        num_cams=BATCH_VIEWS, h=BATCH_H, w=BATCH_W, focal=BATCH_F,
+        plane_depth=5.0, slant=(0.2, -0.1))
+    Ps = make_ring_P(BATCH_VIEWS, BATCH_H, BATCH_W, BATCH_F,
+                     target_depth=5.0)
+    os.makedirs(os.path.join(root, "gt"))
+    names, lines = [], [str(BATCH_VIEWS)]
+    for i, (im, P) in enumerate(zip(images, Ps)):
+        name = f"view{i:03d}.png"
+        save_png(os.path.join(root, name),
+                 np.clip(np.round(im), 0, 255).astype(np.uint8))
+        K, R, C = decompose_projection(P)
+        krt = np.concatenate([K.ravel(), R.ravel(), -R @ C])
+        lines.append(" ".join([name] + [f"{v:.17g}" for v in krt]))
+        write_dmb(os.path.join(root, "gt", f"depth_{i:03d}.dmb"),
+                  intersect_plane(P, BATCH_H, BATCH_W, n_w, d_w)[1]
+                  .astype(np.float32))
+        names.append(name)
+    with open(os.path.join(root, "par.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return names, (n_w, d_w)
+
+
+def plane_dist(np, pts, plane) -> float:
+    """Median |n.X + d| / 5 of a point cloud against the plane (depth 5)."""
+    n_w, d_w = plane
+    return float(np.median(np.abs(np.asarray(pts, np.float64) @ n_w + d_w))
+                 / 5.0)
+
+
+def batch_phase(torch, np, device, card):
+    """The scripts' path on the card (scripts/dino.sh over a folder of
+    views): runs (a) and (b) through gipuma_tpu_torch.cli.main, (c)
+    through run_batch with rect_quantize_shapes; each held as the module
+    docstring says.  Returns {run: kernel launches}."""
+    from gipuma_tpu_torch import cli, kernels
+    from gipuma_tpu_torch.config import MAXCOST, PRESETS, FusionParams
+    from gipuma_tpu_torch.fusion.fuse import fuse_depthmaps
+    from gipuma_tpu_torch.io.calib import load_projection_matrices
+    from gipuma_tpu_torch.io.dmb import read_dmb
+    from gipuma_tpu_torch.io.ply import read_ply
+    from gipuma_tpu_torch.models import rect_scene as rs
+    from gipuma_tpu_torch.models.patchmatch import init_state, make_generator
+    from gipuma_tpu_torch.ops import checkerboard as cb
+    from gipuma_tpu_torch.ops.rect_cost import rect_multiview_cost_batch
+    from gipuma_tpu_torch.pipeline import prepare_job, run_batch
+
+    stamp("batch: write the folder")
+    out = {}
+    interior = (slice(16, -16), slice(16, -16))
+    with tempfile.TemporaryDirectory() as td:
+        root = os.path.join(td, "views")
+        os.makedirs(root)
+        names, plane = write_batch_folder(np, root)
+        par = os.path.join(root, "par.txt")
+        gt_tpl = os.path.join(root, "gt", "depth_{idx:03d}.dmb")
+        Ps = load_projection_matrices(names, krt_file=par)
+        fp = FusionParams(disp_thresh=0.1, normal_thresh=30.0,
+                          num_consistent=3)
+        runs = {"a": ([], ("bilinear_sample",)),
+                "b": (["--cost_path", "rect", "--pyramid_levels", "3",
+                       "--pyramid_fine_iterations", "1"],
+                      ("permute2d", "sdg_fused_cost"))}
+        for label, (extra, need) in runs.items():
+            stamp(f"batch ({label}): cli.main, dino.sh's flags {extra}")
+            res_root = os.path.join(td, f"out_{label}")
+            argv = (["-images_folder", root, "-krt_file", par,
+                     "-output_folder", res_root, "-gt", gt_tpl]
+                    + DINO_FLAGS + extra)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.counts)
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0:
+                fail(f"batch ({label}): cli.main returned {rc}")
+            missing = [k for k in need if launches[k] <= 0]
+            if missing:
+                fail(f"batch ({label}): kernels never launched: {missing}")
+            (run_dir,) = [os.path.join(res_root, d)
+                          for d in os.listdir(res_root)]
+            meds, rts, depths, normals = [], [], [], []
+            for i, name in enumerate(names):
+                vdir = os.path.join(run_dir, os.path.splitext(name)[0])
+                depth = read_dmb(os.path.join(vdir, "disp.dmb"))
+                gt_i = read_dmb(os.path.join(root, "gt",
+                                             f"depth_{i:03d}.dmb"))
+                if not (depth.shape == gt_i.shape
+                        and np.isfinite(depth).all()):
+                    fail(f"batch ({label}): {name}: depth not finite or of "
+                         "the wrong shape")
+                med = float(np.median(np.abs(depth[interior] - gt_i[interior])
+                                      / gt_i[interior]))
+                with open(os.path.join(vdir, "results.txt")) as f:
+                    text = f.read()
+                head, _ = json.JSONDecoder().raw_decode(text)
+                gt_path = os.path.join(root, "gt", f"depth_{i:03d}.dmb")
+                if (f"gt_file {gt_path}\n" not in text
+                        or "\nerror_rate_tol" not in text):
+                    fail(f"batch ({label}): {name}: results.txt has no GT "
+                         "evaluation lines")
+                if not med < 5e-3:
+                    fail(f"batch ({label}): {name}: median rel depth err "
+                         f"{med} (gate 5e-3)")
+                meds.append(med)
+                rts.append(head["runtime_s"])
+                depths.append(depth)
+                normals.append(read_dmb(os.path.join(vdir, "normals.dmb")))
+            pts = read_ply(os.path.join(run_dir, "fused.ply"))[0]
+            n_min = 0.25 * BATCH_H * BATCH_W
+            pdist = plane_dist(np, pts, plane)
+            if not (len(pts) >= n_min and pdist < 5e-3):
+                fail(f"batch ({label}): fused.ply {len(pts)} points (need "
+                     f">= {n_min}), median plane distance / depth {pdist}")
+            depths, normals = np.stack(depths), np.stack(normals)
+            # Colour = the pixel's global index: the fused colours name the
+            # kept pixels, in order.
+            ids = np.arange(depths.size).reshape(depths.shape)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pts_g, _, ids_g = fuse_depthmaps(depths, normals, Ps, fp,
+                                             colors=ids, device=device)
+            fuse_s = time.perf_counter() - t0
+            line = {"metric": "batch", "run": label, "card": card,
+                    "views": len(names), "runtime_s": rts,
+                    "median_rel_err": meds, "wall_s": wall,
+                    "fusion_s_card": fuse_s, "points_fused_ply": len(pts),
+                    "points_card": len(pts_g),
+                    "plane_dist_fused_ply": pdist,
+                    "peak_allocated_GB": peak / 1e9, "launches": launches}
+            if label == "a":
+                t0 = time.perf_counter()
+                pts_c, _, ids_c = fuse_depthmaps(depths, normals, Ps, fp,
+                                                 colors=ids, device="cpu")
+                line["fusion_s_cpu"] = time.perf_counter() - t0
+                line["points_cpu"] = len(pts_c)
+                d_g, d_c = plane_dist(np, pts_g, plane), plane_dist(
+                    np, pts_c, plane)
+                line["plane_dist_card"], line["plane_dist_cpu"] = d_g, d_c
+                same = (ids_g.shape == ids_c.shape
+                        and bool((ids_g == ids_c).all()))
+                line["keep_masks_equal"] = same
+                if not same:
+                    fail(f"batch (a): card fusion kept {len(pts_g)} pixels "
+                         f"(plane distance {d_g}), the CPU's {len(pts_c)} "
+                         f"({d_c}): keep masks or their order differ")
+            log(json.dumps(line))
+            out[label] = launches
+
+        # (c) rect_quantize_shapes through run_batch: the ledger holds the
+        # three views at one bucket; each scene's info is recorded.
+        stamp(f"batch (c): run_batch, rect_quantize_shapes, refs "
+              f"{QUANT_REFS}")
+        qp = PRESETS["middlebury"].replace(
+            box_hsize=11, box_vsize=11, iterations=8, n_best=3,
+            depth_min=3.0, depth_max=8.0, min_angle=0.01, max_angle=60.0,
+            cost_path="rect", rect_quantize_shapes=True)
+        infos = []
+        build = rs.build_rect_scene
+
+        def recording(*a, **k):
+            scene, info = build(*a, **k)
+            infos.append(info)
+            return scene, info
+        rs.build_rect_scene = recording
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            res_c = run_batch([os.path.join(root, n) for n in names], qp,
+                              os.path.join(td, "out_c"), krt_file=par,
+                              ref_indices=QUANT_REFS, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            rs.build_rect_scene = build
+        launches = dict(kernels.counts)
+        buckets = [i["shape_bucket"] for i in infos]
+        shapes = [(max(p["rect_shape"][0] for p in i["pairs"]
+                       if "rect_shape" in p),
+                   max(p["rect_shape"][1] for p in i["pairs"]
+                       if "rect_shape" in p)) for i in infos]
+        meds = []
+        for ref, r in zip(QUANT_REFS, res_c):
+            gt_i = read_dmb(os.path.join(root, "gt", f"depth_{ref:03d}.dmb"))
+            meds.append(float(np.median(
+                np.abs(r.depth[interior] - gt_i[interior]) / gt_i[interior])))
+        log(json.dumps({"metric": "batch", "run": "c", "card": card,
+                        "views": list(QUANT_REFS),
+                        "runtime_s": [r.runtime_s for r in res_c],
+                        "median_rel_err": meds, "wall_s": wall,
+                        "rect_shapes": shapes, "shape_buckets": buckets,
+                        "peak_allocated_GB":
+                            torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": launches}))
+        if len(buckets) != len(QUANT_REFS) or any(b != buckets[0]
+                                                  for b in buckets):
+            fail(f"batch (c): shape buckets differ across views: {buckets}")
+        if len(set(shapes)) < 2:
+            fail(f"batch (c): the views' rect shapes are all {shapes[0]}")
+        if not all(m < 5e-3 for m in meds):
+            fail(f"batch (c): median rel depth err {meds} (gate 5e-3)")
+        out["c"] = launches
+
+        # The costs of one candidate set on the quantized and unquantized
+        # scene of one view, on the card: bit-equal at every real view.
+        from gipuma_tpu_torch.io.images import load_image
+        imgs = [load_image(os.path.join(root, n)) for n in names]
+        ref = QUANT_REFS[1]
+        jq = prepare_job(imgs, Ps, qp, names, ref_index=ref, device=device)
+        ju = prepare_job(imgs, Ps, qp.replace(rect_quantize_shapes=False),
+                         names, ref_index=ref, device=device)
+
+        def zero_cost(sc, p, par, n, d):
+            return torch.zeros(n.shape[:2], device=device)
+
+        with torch.no_grad():
+            st = init_state(ju.prep, ju.params, make_generator(3, device),
+                            zero_cost)
+            eo = cb.PaddedEO.build(st.planes, 1, 3)
+            cand = torch.stack([eo.shifted(dy, dx, 0) for dy, dx in
+                                ((-1, 0), (1, 0), (0, -1), (0, 1))])
+            kernels.reset_counts()
+            c_u = rect_multiview_cost_batch(ju.prep, ju.params, 0,
+                                            cand[..., :3].contiguous(),
+                                            cand[..., 3].contiguous())
+            c_q = rect_multiview_cost_batch(jq.prep, jq.params, 0,
+                                            cand[..., :3].contiguous(),
+                                            cand[..., 3].contiguous())
+        same = bool(torch.equal(c_u.view(torch.int32),
+                                c_q.view(torch.int32)))
+        log(f"  quantized scene {tuple(jq.prep.ref_rect.shape)} vs "
+            f"{tuple(ju.prep.ref_rect.shape)}: K=4 costs "
+            f"{'bit-equal' if same else 'DIFFER'} "
+            f"({int((c_u < MAXCOST).sum())} live), launches "
+            f"{dict(kernels.counts)}")
+        if not same:
+            fail("batch (c): quantized and unquantized costs differ")
+        del jq, ju, st, eo, cand, c_u, c_q
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}", 2)
@@ -498,6 +812,11 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
     log(f"nvcc: {nvcc_version()}")
+    try:
+        import PIL
+        log(f"PIL: importable, version {PIL.__version__}")
+    except ImportError:
+        log("PIL: not importable (the port's image loader does without)")
 
     # ---- 2. build ---------------------------------------------------------
     stamp("build")
@@ -816,32 +1135,59 @@ def main() -> int:
         fail(f"write_outputs artifacts {got_files} != {want_files}")
     log(f"  artifacts: {got_files}")
 
+    # ---- 4b. the scripts' path: a folder of views, CLI, fusion ----------
+    batch = batch_phase(torch, np, device, card)
+
     # ---- 5. timings ----------------------------------------------------------
     stamp("timings")
-    for label in ("pyramid", "census", "unfused"):
+    for label in ("pyramid", "census", "unfused", "monolithic"):
         t0 = time.perf_counter()
         jobs[label] = prepare_job(images, Ps, paths[label], device=device)
         prep_s[label] = time.perf_counter() - t0
     prof, moved = {}, {}
     mp = h * w / 1e6
+    gc_s = [0.0, None]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        elif gc_s[1] is not None:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+    gc.callbacks.append(gc_clock)
     for label in (lb for lb in paths if lb != "census_exact"):
         # A warm run of the path (the pyramid's first run resolves its
-        # background scene builds; this second one reuses them).
+        # background scene builds; this second one reuses them).  The
+        # collection owed by earlier phases (the profiled runs' events) is
+        # made before the timed span: one fell inside the monolithic warm
+        # run, 1.27 s of its 1.93 s on an H100 80GB HBM3 at 700 W.
+        gc.collect()
         torch.cuda.synchronize()
         kernels.reset_counts()
+        m0 = torch.cuda.memory_stats()
+        gc_s[0] = 0.0
         t0 = time.perf_counter()
         res2 = run_prepared_job(jobs[label])
         run_s = time.perf_counter() - t0
+        m1 = torch.cuda.memory_stats()
         log(json.dumps({"metric": "path", "path": label, "card": card,
                         "e2e_first_s": runs[label]["e2e_s"],
+                        "first_runtime_s": runs[label]["res"].runtime_s,
                         "prep_s": prep_s[label], "run_s": run_s,
                         "runtime_s": res2.runtime_s,
                         "MP_per_s": mp / res2.runtime_s,
                         "median_rel_err": runs[label]["med"],
-                        "launches": dict(kernels.counts)}))
+                        "launches": dict(kernels.counts),
+                        "gc_s": gc_s[0],
+                        "device_allocs": m1.get("num_device_alloc", 0)
+                        - m0.get("num_device_alloc", 0),
+                        "alloc_retries": m1["num_alloc_retries"]
+                        - m0["num_alloc_retries"],
+                        "reserved_GB": torch.cuda.memory_reserved() / 1e9,
+                        "threads": threading.active_count()}))
         prof[label], moved[label] = profile_path(torch, jobs[label], card,
                                                  res2.runtime_s, label)
         stamp(f"profiled {label}")
+    gc.callbacks.remove(gc_clock)
 
     def per_launch_ms(label, name):
         ms, n = prof[label].get(name, (0.0, 0))
@@ -1136,6 +1482,11 @@ def main() -> int:
              "shape", "ms", "one_row_launches_ms", "plain_ms", "bound_ms")}
              for k, ln in rows_lines.items()}},
     ]
+    # Launches in the batch phase's runs, (d) being the monolithic path.
+    batch["d"] = runs["monolithic"]["launches"]
+    for row in kernel_rows:
+        row["batch_launches"] = {r: ln[row["name"]]
+                                 for r, ln in sorted(batch.items())}
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -183,8 +183,8 @@ class AlgorithmParams:
     # Forward permute of the planes m = n/d as 2 int32 words per candidate
     # (f16 pair + f32) instead of 3 f32 channels (ops/rect_cost._pack_m).
     rect_pack_m: bool = True
-    # Round the rect executables' static shapes up to buckets (JAX compile
-    # caching; a later slice of the port).
+    # Round the rect scene's shapes up to buckets (the JAX package's compile
+    # caching; the port builds the same shapes, models/rect_scene.py).
     rect_quantize_shapes: bool = False
     rect_quantum_rows: int = 64     # hrp rounding; multiple of 8
     rect_quantum_cols: int = 256    # wrp rounding; multiple of 128
@@ -289,3 +289,12 @@ PRESETS: dict[str, AlgorithmParams] = {
     ),
 }
 
+
+@dataclasses.dataclass(frozen=True)
+class FusionParams:
+    """Consistency-fusion knobs; interface parity with out-of-tree fusibile
+    (scripts/dtu_fast.sh:24-26, scripts/dino.sh:20-22)."""
+
+    disp_thresh: float = 0.5
+    normal_thresh: float = 30.0   # degrees
+    num_consistent: int = 3

@@ -138,7 +138,7 @@ def rect_scene_from_numpy(tree: Mapping, device=None) -> RectScene:
     device = resolve_device(device)
     kw = {"base": scene_pack_from_numpy(tree["base"], device)}
     for f in RectScene._fields:
-        if f in ("base", "cull", "rot_k_host"):
+        if f in ("base", "cull", "rot_k_host", "valid_host"):
             continue
         a = tree.get(f)
         if a is None:
@@ -152,6 +152,8 @@ def rect_scene_from_numpy(tree: Mapping, device=None) -> RectScene:
         raise NotImplementedError("cull_downscale screening scenes are a "
                                   "later slice of the port")
     kw["rot_k_host"] = tuple(int(k) for k in np.asarray(tree["rot_k"]))
+    kw["valid_host"] = tuple(
+        bool(v) for v in np.asarray(tree["base"]["view_valid"]))
     return RectScene(**kw)
 
 

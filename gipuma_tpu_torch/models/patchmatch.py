@@ -6,6 +6,8 @@ GPU core, gipuma.cu:996-1960):
 * random plane-field init            — gipuma_init_cu2        (gipuma.cu:996-1051)
 * checkerboard close propagation ±1  — spatialPropClose       (gipuma.cu:1471-1588)
 * checkerboard far propagation ±5    — spatialPropFar         (gipuma.cu:1353-1468)
+* monolithic propagation, 20 offsets — gipuma_checkerboard_cu (gipuma.cu:1236-1330)
+  (config.propagation_variant="monolithic")
 * plane refinement (perturbation)    — planeRefinement_cu     (gipuma.cu:928-994):
   sequential rounds, or all rounds as one K-candidate batch
   (config.refine_batched, for cost functions that batch it)
@@ -28,6 +30,25 @@ import torch
 from ..config import MAXCOST, AlgorithmParams
 from ..geometry import transforms as T
 from ..ops import checkerboard as cb
+
+
+# Propagation offsets as (dy, dx), in the reference's evaluation order
+# (up, down, left, right — gipuma.cu:1450-1462, 1569-1582).
+CLOSE_OFFSETS = ((-1, 0), (1, 0), (0, -1), (0, 1))
+FAR_OFFSETS = ((-5, 0), (5, 0), (0, -5), (0, 5))
+# Monolithic-kernel offsets (gipuma_checkerboard_cu, gipuma.cu:1236-1330):
+# per axis ±1 (base), ±3 (EXTRAPOINT), ±5 (EXTRAPOINTFAR), plus the
+# EXTRAPOINT2 diagonal-ish points, in the reference's evaluation order
+# (_fold_better accepts the first strict improvement, so order matters).
+MONOLITHIC_OFFSETS = (
+    (-1, 0), (-3, 0), (-5, 0),      # up, upup, upup-2
+    (1, 0), (3, 0), (5, 0),         # down...
+    (0, -1), (0, -3), (0, -5),      # left...
+    (0, 1), (0, 3), (0, 5),         # right...
+    # EXTRAPOINT2 (gipuma.cu:1294-1330)
+    (-1, 2), (1, 2), (-1, -2), (1, -2),
+    (-2, -1), (-2, 1), (2, -1), (2, 1),
+)
 
 
 class PMState(NamedTuple):
@@ -133,19 +154,18 @@ def _write_back(state: PMState, scene, params, parity, n_now, d_now, c_now,
     return PMState(planes=planes, cost=cost, gen=state.gen)
 
 
-def axial_propagation_sweep(state: PMState, scene, params: AlgorithmParams,
-                            parity: int, dist: int, cost_fn) -> PMState:
-    """One checkerboard propagation sub-sweep over the four axial
-    neighbours at distance `dist` (1 = close, 5 = far), in the reference's
-    order up, down, left, right."""
+def propagation_sweep(state: PMState, scene, params: AlgorithmParams,
+                      parity: int, offsets, cost_fn) -> PMState:
+    """One checkerboard propagation sub-sweep over the neighbour `offsets`
+    ((dy, dx) pairs, evaluated in order): each active pixel takes the
+    first candidate plane that strictly lowers its cost."""
     w = state.cost.shape[1]
     x, y = _active_coords(scene, parity)
-    pad = 5
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in offsets)
     planes_eo = cb.PaddedEO.build(state.planes, pad, pad + 2)
     g_h = scene.global_h.to(y.dtype)
     cand_n, cand_d, cand_ok = [], [], []
-    for sy, sx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
-        dy, dx = sy * int(dist), sx * int(dist)
+    for dy, dx in offsets:
         cand = planes_eo.shifted(dy, dx, parity)             # [H, W2, 4]
         cand_n.append(cand[..., :3])
         cand_d.append(cand[..., 3])
@@ -163,6 +183,16 @@ def axial_propagation_sweep(state: PMState, scene, params: AlgorithmParams,
         n_old, d_old, c_now, cost_fn)
     return _write_back(state, scene, params, parity, n_now, d_now, c_now,
                        n_old, d_old)
+
+
+def axial_propagation_sweep(state: PMState, scene, params: AlgorithmParams,
+                            parity: int, dist: int, cost_fn) -> PMState:
+    """propagation_sweep over the four axial neighbours at distance `dist`
+    (1 = close, 5 = far), in the reference's order up, down, left, right."""
+    dist = int(dist)
+    return propagation_sweep(state, scene, params, parity,
+                             tuple((sy * dist, sx * dist)
+                                   for sy, sx in CLOSE_OFFSETS), cost_fn)
 
 
 def refinement_sweep(state: PMState, scene, params: AlgorithmParams,
@@ -284,13 +314,20 @@ def _refine_sequential(state: PMState, scene, params: AlgorithmParams,
 def iteration(state: PMState, scene, params: AlgorithmParams,
               cost_fn) -> PMState:
     """One PatchMatch iteration: black {close, far, refine} then red
-    {close, far, refine} (gipuma.cu:1911-1941, SMALLKERNEL schedule)."""
+    {close, far, refine} (gipuma.cu:1911-1941, SMALLKERNEL schedule); under
+    propagation_variant="monolithic" each parity's propagation is one
+    sweep over MONOLITHIC_OFFSETS (the reference's gipuma_checkerboard_cu
+    schedule)."""
     for parity in (0, 1):
-        state = axial_propagation_sweep(state, scene, params, parity, 1,
-                                        cost_fn)
-        if params.far_propagation:
-            state = axial_propagation_sweep(state, scene, params, parity, 5,
-                                            cost_fn)
+        if params.propagation_variant == "monolithic":
+            state = propagation_sweep(state, scene, params, parity,
+                                      MONOLITHIC_OFFSETS, cost_fn)
+        else:
+            state = propagation_sweep(state, scene, params, parity,
+                                      CLOSE_OFFSETS, cost_fn)
+            if params.far_propagation:
+                state = propagation_sweep(state, scene, params, parity,
+                                          FAR_OFFSETS, cost_fn)
         if params.refine:
             state = refinement_sweep(state, scene, params, parity, cost_fn)
     return state
@@ -300,9 +337,6 @@ def run_patchmatch(scene, params: AlgorithmParams, gen: torch.Generator,
                    cost_fn, state: PMState | None = None) -> PMState:
     """Init (unless a warm-start `state` is given) + `params.iterations`
     iterations, sub-sweep by sub-sweep from the host."""
-    if params.propagation_variant != "small":
-        raise NotImplementedError(
-            "monolithic propagation is a later slice of the port")
     if state is None:
         state = init_state(scene, params, gen, cost_fn)
     for _ in range(params.iterations):

@@ -73,9 +73,10 @@ def _handoff(state_c, scene_c, scene_f, params_f: AlgorithmParams,
 
 
 def _level_scene(images_l, rig_l, subset, params_l, depth_min, depth_max,
-                 device):
+                 device, ledger=None):
     """(scene, cost_fn) of one level: the rect scene where the level's
-    params ask for it and the rig can be rectified, else the exact one."""
+    params ask for it and the rig can be rectified, else the exact one.
+    ledger: the scan's ShapeBucketLedger (config.rect_quantize_shapes)."""
     if params_l.cost_path == "rect":
         from ..ops.rect_cost import rect_multiview_cost
         from .rect_scene import RectifyUnsupported, build_rect_scene
@@ -85,7 +86,7 @@ def _level_scene(images_l, rig_l, subset, params_l, depth_min, depth_max,
         try:
             scene, _ = build_rect_scene(images_l, rig_l, subset, params_l,
                                         depth_min, depth_max, base=base,
-                                        device=device)
+                                        ledger=ledger, device=device)
             return scene, rect_multiview_cost
         except RectifyUnsupported as e:
             print(f"[gipuma_tpu_torch] rect path unavailable at pyramid "
@@ -124,11 +125,14 @@ def prepare_pyramid(images: Sequence[np.ndarray],
                     P_matrices: Sequence[np.ndarray],
                     names: Sequence[str], subset: Sequence[int],
                     params: AlgorithmParams, depth_min: float,
-                    depth_max: float, lazy: bool = False, device=None):
+                    depth_max: float, lazy: bool = False, device=None,
+                    ledger=None):
     """Build every level's scene (coarsest first) on `device` (None: the
     card).  Returns a list of (scene, cost_fn, params_l, (h_l, w_l)); with
     lazy=True, futures of those (run_pyramid takes either), the builds
-    running on two background threads."""
+    running on two background threads.  ledger: the scan's
+    ShapeBucketLedger (config.rect_quantize_shapes), keyed per level by
+    the level's image shape."""
     from ..pipeline import resolve_device
     device = resolve_device(device)
     levels = max(1, params.pyramid_levels)
@@ -146,7 +150,8 @@ def prepare_pyramid(images: Sequence[np.ndarray],
     def level_item(il, rig_l, params_l):
         with torch.no_grad():
             scene, cost_fn = _level_scene(il, rig_l, subset, params_l,
-                                          depth_min, depth_max, device)
+                                          depth_min, depth_max, device,
+                                          ledger)
         return scene, cost_fn, params_l, il[0].shape[:2]
 
     ex = ThreadPoolExecutor(max_workers=2)

@@ -18,11 +18,14 @@ Counterpart of ``gipuma_tpu/models/rect_scene.py:74-999``.  One-time host
 
 Raises RectifyUnsupported when no pair can be row-rectified; single
 unsupported pairs become invalid views (config.rect_drop_unsupported_views).
-The scan-level ShapeBucketLedger, rect_quantize_shapes and cull_downscale
-screening scenes are a later slice of the port.
+Under config.rect_quantize_shapes the scene's shapes round up to coarse
+buckets, merged across a scan by a ShapeBucketLedger, with zero-work dummy
+views padding the view count.  cull_downscale screening scenes are a later
+slice of the port.
 """
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -36,21 +39,46 @@ from ..ops.permute2d import (build_permute_masks, build_tables,
                              tile_span_blocks)
 from ..ops.rect_cost import RectScene
 from ..ops.rowgather import _to_i32, pack_taps
-from .scene import build_scene
+from .scene import build_scene, pad_scene_views
+
+
+class ShapeBucketLedger:
+    """Scan-level shape ratchet (config.rect_quantize_shapes), the JAX
+    package's ``ShapeBucketLedger`` (rect_scene.py:45-71).
+
+    There it makes every reference view of a scan reuse one compiled
+    executable set; the card compiles nothing per shape, and the port
+    keeps the ledger so a scan's scenes have the JAX package's shapes and
+    ``info["shape_bucket"]``.  run_batch threads one ledger through every
+    prepare_job: each scene ratchets its quantized bucket into the entry
+    for its image shape and builds at the merged maximum.  Thread-safe:
+    run_batch prepares one view ahead on a planner thread."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._m: dict = {}
+
+    def apply(self, key, bucket: dict) -> dict:
+        """Merge `bucket` (monotone static dims) into the entry for `key`
+        (elementwise max) and return the merged floor."""
+        with self._lock:
+            cur = self._m.setdefault(key, dict(bucket))
+            for k, v in bucket.items():
+                cur[k] = max(cur[k], v)
+            return dict(cur)
 
 
 def _dummy_pair(t):
     """Zero-work placeholder pair (dropped views / view-count padding):
-    zero valid extent (hw_valid = (0, 128) => the fused kernel skips every
-    row block), zero tile masks, 8x8 null permutation tables.  Costs one
-    padded view's XLA glue, no kernel work."""
+    zero valid extent (hw_valid = (0, 128)), zero tile masks, 8x8 null
+    permutation tables.  Its view is invalid (view_valid = 0), and the
+    cost loop launches no kernel for an invalid view."""
     return (np.zeros((t[0].shape[0], 8, 128), np.asarray(t[0]).dtype),
             np.zeros((t[1].shape[0], 8, 128), np.asarray(t[1]).dtype),
             np.zeros((3, 3)),
             build_tables(np.zeros((8, 8)), np.zeros((8, 8)), 8, 8),
             build_tables(np.zeros((8, 8)), np.zeros((8, 8)), 8, 8),
             0, 128, 0, (0.0, 1.0), np.zeros((1, 1), np.int32),
-            np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32),
             np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32))
 
 
@@ -282,22 +310,21 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                      view_subset: Sequence[int], params: AlgorithmParams,
                      depth_min: float, depth_max: float,
                      base=None, max_blowup: float = 8.0,
+                     ledger: ShapeBucketLedger | None = None,
                      device=None) -> tuple[RectScene, dict]:
     """Build the rect-path scene on `device`; returns (RectScene, info).
 
     `base` lets callers reuse an existing ScenePack (build_scene
     otherwise).  max_blowup: reject pairs whose rect window exceeds this
-    multiple of the image area.  device: None means the card (it raises
-    when CUDA is absent); pass "cpu" explicitly for the CPU."""
+    multiple of the image area.  ledger: a ShapeBucketLedger shared across
+    a scan (config.rect_quantize_shapes).  device: None means the card (it
+    raises when CUDA is absent); pass "cpu" explicitly for the CPU."""
     from ..pipeline import resolve_device
     device = resolve_device(device)
-    if params.rect_quantize_shapes:
-        raise NotImplementedError(
-            "rect_quantize_shapes / ShapeBucketLedger are a later slice")
     if (int(params.cull_downscale) > 1 and params.rect_two_stage_cull
             and params.pack_taps and params.window_grads):
         raise NotImplementedError(
-            "cull_downscale screening scenes are a later slice")
+            "cull_downscale screening scenes are slice 7")
     if base is None:
         base = build_scene(images, rig, view_subset, params,
                            depth_min, depth_max, lite=True, device=device)
@@ -692,6 +719,35 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
     max_range = max(p[8][1] - p[8][0] for p in good)
     span_perm = max(pi["span_perm"] for _, pi in built_pairs
                     if "span_perm" in pi)
+
+    if params.rect_quantize_shapes:
+        # Shape quantization, as in the JAX package (rect_scene.py:
+        # 800-827): round the rect pads, the view count (zero-work dummy
+        # views), the clamp range feeding the gather-span bound and the
+        # permutation span up to coarse buckets, merged across the scan by
+        # the ledger.  Padded rows, columns and views are skipped work.
+        hrp = _round_up(hrp, _round_up(max(
+            8, int(params.rect_quantum_rows)), 8))
+        wrp = _round_up(wrp, _round_up(max(
+            128, int(params.rect_quantum_cols)), 128))
+        q = max(1.0, float(params.rect_quantum_range))
+        max_range = float(np.ceil(max_range / q) * q)
+        span_perm = _round_up(span_perm, 2)
+        vt = max(len(per_pair),
+                 int(params.rect_pad_views_to) or int(params.max_views))
+        if ledger is not None:
+            # The JAX package keys by (h, w, rect_scale); the port builds
+            # at rect_scale 1 only.
+            fl = ledger.apply(
+                (h, w, 1.0),
+                dict(hrp=hrp, wrp=wrp, max_range=max_range,
+                     span_perm=span_perm, views=vt))
+            hrp, wrp, vt = fl["hrp"], fl["wrp"], fl["views"]
+            max_range, span_perm = fl["max_range"], fl["span_perm"]
+        if vt > len(per_pair):
+            per_pair = per_pair + [_dummy_pair(good[0])] * (vt
+                                                            - len(per_pair))
+            base = pad_scene_views(base, vt)
     info["shape_bucket"] = dict(hrp=hrp, wrp=wrp, views=len(per_pair),
                                 max_range=max_range, span_perm=span_perm)
 
@@ -735,6 +791,7 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
     ret_c1 = assemble([p[4].c1 for p in per_pair], hrp, s_sq)
     ret_r = assemble([p[4].r for p in per_pair], s_sq, s_sq)
     rot_host = tuple(int(p[7]) for p in per_pair)
+    valid_host = tuple(bool(v) for v in base.view_valid.tolist())
     rot_k = torch.as_tensor(rot_host, dtype=torch.int32, device=device)
     disp_bounds = torch.as_tensor(
         np.asarray([p[8] for p in per_pair], np.float32), device=device)
@@ -771,7 +828,8 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                       fwd_c1=fwd_c1, fwd_r=fwd_r, ret_c1=ret_c1, ret_r=ret_r,
                       rot_k=rot_k, disp_bounds=disp_bounds, spans=spans,
                       hw_valid=hw_valid, tile_ok=tile_ok,
-                      fwd2_ok=fwd2_ok, ret2_ok=ret2_ok, rot_k_host=rot_host)
+                      fwd2_ok=fwd2_ok, ret2_ok=ret2_ok, rot_k_host=rot_host,
+                      valid_host=valid_host)
     info["rect_shape_padded"] = (hrp, wrp)
     info["spans"] = (span_sample, span_perm)
     return scene, info

@@ -64,6 +64,9 @@ class RectScene(NamedTuple):
     # Host copy of rot_k (python ints): picks each view's rotation without
     # a device sync.
     rot_k_host: tuple = ()
+    # Host copy of view_valid (bools): invalid views (dropped pairs, the
+    # dummy views of rect_quantize_shapes) launch no kernel.
+    valid_host: tuple = ()
 
     @property
     def rays(self):
@@ -140,6 +143,10 @@ class RectScene(NamedTuple):
     def rotations(self) -> tuple:
         return self.rot_k_host or tuple(int(k) for k in self.rot_k.tolist())
 
+    def valid_views(self) -> tuple:
+        return self.valid_host or tuple(
+            bool(v) for v in self.view_valid.tolist())
+
 
 def _slice_views(scene: RectScene, stride: int) -> RectScene:
     """Strided view subset of a RectScene (the two-stage cull's sparse
@@ -155,7 +162,8 @@ def _slice_views(scene: RectScene, stride: int) -> RectScene:
         rot_k=sl(scene.rot_k), disp_bounds=sl(scene.disp_bounds),
         hw_valid=sl(scene.hw_valid), tile_ok=sl(scene.tile_ok),
         fwd2_ok=sl(scene.fwd2_ok), ret2_ok=sl(scene.ret2_ok),
-        rot_k_host=tuple(scene.rotations()[::stride]))
+        rot_k_host=tuple(scene.rotations()[::stride]),
+        valid_host=tuple(scene.valid_views()[::stride]))
 
 
 # --- f16 / f32 word packing for the nearest permutes (bitwise equal to the
@@ -517,7 +525,12 @@ def rect_per_view_costs_batch(scene: RectScene, params: AlgorithmParams,
              and scene.fwd2_ok is not None and scene.ret2_ok is not None)
 
     costs = []
-    for v, kv in enumerate(scene.rotations()):
+    for v, (kv, ok) in enumerate(zip(scene.rotations(),
+                                     scene.valid_views())):
+        if not ok:   # invalid view: MAXCOST, as the combine would force
+            costs.append(torch.full((K, h, w // 2), MAXCOST,
+                                    dtype=torch.float32, device=dev))
+            continue
         m_rect = permute2d(rot_pad(kv), scene.fwd_c1[v], scene.fwd_r[v],
                            mask2=scene.fwd2_ok[v] if pskip else None)
         tmv = scene.tile_ok[v] if footprint else None
@@ -587,7 +600,7 @@ def rect_multiview_cost_batch(scene: RectScene, params: AlgorithmParams,
             and params.pack_taps and params.window_grads):
         if scene.cull is not None:
             raise NotImplementedError(
-                "cull_downscale screening scenes are a later slice")
+                "cull_downscale screening scenes are slice 7")
         sp = params.replace(box_hsize=int(params.cull_box),
                             box_vsize=int(params.cull_box),
                             window_increment=int(params.cull_increment))

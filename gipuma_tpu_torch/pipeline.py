@@ -1,10 +1,12 @@
 """End-to-end depth-map pipeline — the runGipuma analog (main.cpp:694-1199).
 
-Counterpart of ``gipuma_tpu/pipeline.py:73-243``: select views, build the
+Counterpart of ``gipuma_tpu/pipeline.py:73-314``: select views, build the
 scene (the rectified path, or the exact path — the default, and the
 fallback where the rig cannot be rectified — or a coarse-to-fine pyramid
 of either), run PatchMatch, finalize, write outputs (dmb/ply/png +
-results.txt).
+results.txt).  ``run_batch`` loops the reference views of a folder of
+images in-process (the scripts' shell loop), preparing view i+1 on a
+planner thread while view i runs.
 
 Entry points run on the card: ``device=None`` means ``cuda``, and raises
 when CUDA is absent.  Pass ``device="cpu"`` to run the plain versions of
@@ -26,9 +28,11 @@ import numpy as np
 import torch
 
 from .config import AlgorithmParams
-from .geometry.camera import FAKE_BASELINE, build_rig
+from .geometry.camera import FAKE_BASELINE, build_rig, camera_center_from_P
+from .io import calib as calib_io
 from .io import dmb as dmb_io
 from .io import vis as vis_io
+from .io.images import load_image
 from .io.ply import write_ply
 from .models.patchmatch import finalize, make_generator, run_patchmatch
 from .models.scene import build_scene, ensure_even_width
@@ -58,13 +62,9 @@ _LATER = [
     (lambda p: p.cost_path == "rect"
      and p.cull_downscale > 1 and p.rect_two_stage_cull
      and p.pack_taps and p.window_grads,
-     "cull_downscale screening scenes are a later slice"),
-    (lambda p: p.cost_path == "rect" and p.rect_quantize_shapes,
-     "rect_quantize_shapes / ShapeBucketLedger are a later slice"),
+     "cull_downscale screening scenes are slice 7"),
     (lambda p: p.level_dispatch != "host",
-     "level_dispatch='scan' is a later slice"),
-    (lambda p: p.propagation_variant != "small",
-     "monolithic propagation is a later slice"),
+     "level_dispatch='scan' is slice 7"),
 ]
 
 
@@ -111,14 +111,16 @@ def prepare_job(images: Sequence[np.ndarray],
                 P_matrices: Sequence[np.ndarray],
                 params: AlgorithmParams,
                 image_names: Sequence[str] | None = None,
-                ref_index: int = 0, device=None) -> PreparedJob:
+                ref_index: int = 0, device=None,
+                ledger=None) -> PreparedJob:
     """Plan one reference view's job and build its rect scene on `device`.
 
     images/P_matrices are for all cameras; `ref_index` selects the
     reference (swapped to the front internally, main.cpp:409-421).  When
     the rect path is asked for and the rig cannot be rectified, the job
     falls back to the exact path (with a printed line), as in the JAX
-    package."""
+    package.  ledger: a rect_scene.ShapeBucketLedger shared across a scan
+    (config.rect_quantize_shapes; run_batch threads one through)."""
     device = resolve_device(device)
     check_supported(params)
     order = [ref_index] + [i for i in range(len(images)) if i != ref_index]
@@ -146,7 +148,8 @@ def prepare_job(images: Sequence[np.ndarray],
     if params.pyramid_levels > 1:
         from .models.pyramid import prepare_pyramid
         prep = prepare_pyramid(images, Ps, names, subset, params, depth_min,
-                               depth_max, lazy=True, device=device)
+                               depth_max, lazy=True, device=device,
+                               ledger=ledger)
         return PreparedJob(prep=prep, pyramid=True, **job)
 
     with torch.no_grad():
@@ -159,7 +162,7 @@ def prepare_job(images: Sequence[np.ndarray],
             try:
                 scene, _ = build_rect_scene(images, rig, subset, params,
                                             depth_min, depth_max, base=base,
-                                            device=device)
+                                            ledger=ledger, device=device)
             except RectifyUnsupported as e:
                 print(f"[gipuma_tpu_torch] rect path unavailable ({e}); "
                       "falling back to the exact cost path")
@@ -248,3 +251,74 @@ def write_outputs(result: RunResult, out_dir: str | os.PathLike,
     }
     with open(out / "results.txt", "a") as f:
         f.write(json.dumps(lines, indent=2) + "\n")
+
+
+def run_batch(image_paths: Sequence[str], params: AlgorithmParams,
+              results_root: str | os.PathLike,
+              p_folder: str | None = None, krt_file: str | None = None,
+              calib_file: str | None = None, pmvs_folder: str | None = None,
+              ref_indices: Sequence[int] | None = None,
+              color: bool = False, skip_existing: bool = False,
+              device=None) -> list[RunResult]:
+    """Loop reference views in-process (replaces scripts/*.sh shell loops),
+    on `device` (None: the card).
+
+    Loads the calibration and the images, takes the depth range from the
+    bundler points when depth_min == -1 and a pmvs folder is given, and
+    writes each view's outputs under results_root/<image stem>.
+    skip_existing: resume a partially-finished batch — views whose output
+    directory already holds a disp.dmb are skipped.  One planner thread
+    prepares view i+1 (its scene built on the device) while view i runs:
+    both threads use the device's default stream, so the work is ordered,
+    and a job's scene is read only after its prepare_job has returned;
+    the device holds up to two views' scenes at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    device = resolve_device(device)
+    check_supported(params)
+    names = [Path(p).name for p in image_paths]
+    Ps = calib_io.load_projection_matrices(
+        names, p_folder=p_folder, krt_file=krt_file,
+        calib_file=calib_file, pmvs_folder=pmvs_folder)
+    images = [load_image(p, color=color) for p in image_paths]
+    if ref_indices is None:
+        ref_indices = range(len(images))
+
+    if pmvs_folder and params.depth_min == -1:
+        # Bundler point cloud drives the depth range (main.cpp:873-876).
+        bundle = Path(pmvs_folder) / "bundle.rd.out"
+        if bundle.exists():
+            dmin, dmax = calib_io.bundler_depth_range(
+                bundle, camera_center_from_P(np.asarray(Ps[0])))
+            params = params.replace(depth_min=dmin, depth_max=dmax)
+
+    root = Path(results_root)
+    todo = [ref for ref in ref_indices
+            if not (skip_existing
+                    and (root / Path(names[ref]).stem / "disp.dmb").exists())]
+    # One ledger across all reference views of the scan
+    # (config.rect_quantize_shapes).
+    ledger = None
+    if params.cost_path == "rect" and params.rect_quantize_shapes:
+        from .models.rect_scene import ShapeBucketLedger
+        ledger = ShapeBucketLedger()
+
+    def prepare(ref):
+        return prepare_job(images, Ps, params, names, ref_index=ref,
+                           device=device, ledger=ledger)
+
+    results = []
+    with ThreadPoolExecutor(max_workers=1) as planner:
+        nxt = planner.submit(prepare, todo[0]) if todo else None
+        for i, ref in enumerate(todo):
+            job = nxt.result()
+            if i + 1 < len(todo):
+                nxt = planner.submit(prepare, todo[i + 1])
+            res = run_prepared_job(job)
+            P_ref = build_rig([Ps[ref]] + [Ps[k] for k in range(len(Ps))
+                                           if k != ref],
+                              rebase=True).cameras[0].P
+            write_outputs(res, root / Path(names[ref]).stem, params,
+                          ref_image=images[ref], P_ref=P_ref)
+            results.append(res)
+    return results

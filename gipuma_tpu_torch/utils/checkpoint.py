@@ -1,13 +1,18 @@
-"""Warm start of the PatchMatch state from depth + normal maps.
+"""Checkpoint / warm start of the PatchMatch state.
 
-Counterpart of ``gipuma_tpu/utils/checkpoint.py:53-115`` (``warm_start``,
-``_warm_start_impl``): rebuild the plane field from a depth map and
-world-frame normals — a previous run's output, or a coarser pyramid
-level's — and evaluate (or carry in) its cost, so PatchMatch continues from
-that geometry instead of a random init.  ``save_state`` / ``load_state``
-come with a later slice of the port.
+Counterpart of ``gipuma_tpu/utils/checkpoint.py``:
+
+* ``save_state`` / ``load_state`` (:28-38): the full PMState (planes +
+  cost + the generator's state, where the JAX package stores its PRNG key)
+  as .npz — an exact resume point mid-run;
+* ``warm_start`` (:53-115): rebuild the plane field from a depth map and
+  world-frame normals — a previous run's output, or a coarser pyramid
+  level's — and evaluate (or carry in) its cost, so PatchMatch continues
+  from that geometry instead of a random init.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -17,6 +22,39 @@ from ..geometry import transforms as T
 from ..models.patchmatch import PMState
 from ..ops import checkerboard as cb
 from ..ops.cost import multiview_cost
+
+
+def save_state(path: str | os.PathLike, state: PMState) -> None:
+    """planes, cost and (when the state has one) the generator's state and
+    device type, compressed."""
+    arrays = dict(planes=state.planes.cpu().numpy(),
+                  cost=state.cost.cpu().numpy())
+    if state.gen is not None:
+        arrays["gen_state"] = state.gen.get_state().numpy()
+        arrays["gen_device"] = np.array(state.gen.device.type)
+    np.savez_compressed(path, **arrays)
+
+
+def load_state(path: str | os.PathLike, device=None) -> PMState:
+    """The saved PMState on `device` (None: the card), its generator
+    continuing the saved stream.  A generator's state belongs to its
+    device type: a state saved on the card loads onto the card, one saved
+    on the CPU onto the CPU."""
+    from ..pipeline import resolve_device
+    device = resolve_device(device)
+    with np.load(path) as z:
+        planes = torch.as_tensor(z["planes"], device=device)
+        cost = torch.as_tensor(z["cost"], device=device)
+        gen = None
+        if "gen_state" in z:
+            saved = str(z["gen_device"])
+            if saved != device.type:
+                raise ValueError(
+                    f"{path}: the generator state was saved on {saved!r} and "
+                    f"cannot continue on {device.type!r}")
+            gen = torch.Generator(device=device)
+            gen.set_state(torch.from_numpy(z["gen_state"].copy()))
+    return PMState(planes=planes, cost=cost, gen=gen)
 
 
 def warm_start(scene, params: AlgorithmParams, gen: torch.Generator,

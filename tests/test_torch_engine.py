@@ -10,7 +10,11 @@ across with gipuma_tpu_torch.convert.
   injected through refinement_sweep(uniforms=...): the candidate planes
   are computed in each framework, so planes agree to rtol 1e-5 on >= 99.5%
   of the active pixels.
-Costs agree to 1e-3 abs (the fused-cost tolerance) where planes agree."""
+Costs agree to 1e-3 abs (the fused-cost tolerance) where planes agree.
+
+And in the port alone: one monolithic iteration on the synthetic scene
+passes the JAX package's gate for that variant; save_state / load_state
+round-trip a state and its generator continues the same stream."""
 import dataclasses
 import subprocess
 import sys
@@ -34,6 +38,7 @@ from gipuma_tpu_torch.convert import (params_from_dict, rect_scene_from_numpy,
                                       state_from_numpy, to_numpy_tree)
 from gipuma_tpu_torch.models import patchmatch as tpm
 from gipuma_tpu_torch.ops.rect_cost import rect_multiview_cost as t_cost
+from gipuma_tpu_torch.utils.checkpoint import load_state, save_state
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -136,3 +141,46 @@ def test_finalize_matches(setup):
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_monolithic_iteration_quality():
+    """Random init plus one iteration of monolithic propagation on the rect
+    path, on tests/test_variants.py's scene, meets that file's gate for
+    the variant (median rel depth err < 0.02 on [8:-8, 8:-8])."""
+    from gipuma_tpu_torch.config import AlgorithmParams
+    from gipuma_tpu_torch.models.rect_scene import build_rect_scene
+    images, rig, gt, _ = plane_scene(num_cams=4, h=40, w=48, focal=80.0,
+                                     plane_depth=5.0)
+    tp = AlgorithmParams(box_hsize=7, box_vsize=7, iterations=1,
+                         propagation_variant="monolithic", cost_path="rect",
+                         rect_two_stage_cull=True, cull_view_stride=2
+                         ).with_depth_range(3.0, 8.0, rig.f, FAKE_BASELINE)
+    scene, _ = build_rect_scene(images, rig, [1, 2, 3], tp, 3.0, 8.0,
+                                device="cpu")
+    with torch.no_grad():
+        state = tpm.run_patchmatch(scene, tp, tpm.make_generator(0, "cpu"),
+                                   t_cost)
+        depth = tpm.finalize(state, scene)[0].numpy()
+    i = np.s_[8:-8, 8:-8]
+    err = np.abs(depth[i] - gt[i]) / gt[i]
+    assert np.median(err) < 0.02, np.median(err)
+
+
+def test_save_load_state_roundtrip(tmp_path):
+    rng = np.random.default_rng(12)
+    gen = tpm.make_generator(11, "cpu")
+    torch.rand(5, generator=gen)               # advance the stream
+    st = state_from_numpy(rng.standard_normal((6, 8, 4)),
+                          rng.uniform(0, 5, (6, 8)), generator=gen,
+                          device="cpu")
+    save_state(tmp_path / "s.npz", st)
+    back = load_state(tmp_path / "s.npz", device="cpu")
+    assert torch.equal(back.planes, st.planes)
+    assert torch.equal(back.cost, st.cost)
+    assert torch.equal(torch.rand(7, generator=back.gen),
+                       torch.rand(7, generator=gen))
+    save_state(tmp_path / "n.npz", st._replace(gen=None))
+    assert load_state(tmp_path / "n.npz", device="cpu").gen is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_state(tmp_path / "s.npz")

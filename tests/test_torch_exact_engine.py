@@ -10,6 +10,8 @@ same state carried across with gipuma_tpu_torch.convert:
   refinement in either package, whatever refine_batched says) fed the JAX
   package's per-round draws (patchmatch.py:336-357): planes agree to rtol
   1e-5 on >= 99.5% of the active pixels;
+* one monolithic propagation sweep (MONOLITHIC_OFFSETS, 20 candidates):
+  as the close sweep;
 costs agree to 1e-4 abs where planes agree.
 
 And, in the port alone: on the rect path, refine_batched=False runs the
@@ -108,6 +110,26 @@ def test_close_propagation_sweep(setup):
         state_from_numpy(setup["planes"], setup["cost"], device="cpu"),
         setup["ts"],
         setup["tp"], parity, 1, t_cost)
+    changed = ~np.all(np.asarray(jnew.planes) == setup["planes"], axis=-1)
+    assert changed.mean() > 0.05, "the sweep accepted too little"
+    _compare(jnew, tnew, parity, exact=True)
+
+
+def test_monolithic_propagation_sweep(setup):
+    """propagation_sweep over MONOLITHIC_OFFSETS (20 candidates, the
+    reference's gipuma_checkerboard_cu order) against the JAX sweep, from
+    the injected state; the same equality as the close sweep.  (On the
+    rect path the JAX sweep takes minutes in interpret mode here; the
+    engine code is the same for both costs.)"""
+    parity = 1
+    jp = setup["jp"]
+    assert tpm.MONOLITHIC_OFFSETS == jpm.MONOLITHIC_OFFSETS
+    jsweep = jax.jit(lambda s, sc: jpm.propagation_sweep(
+        s, sc, jp, parity, jpm.MONOLITHIC_OFFSETS, cost_fn=j_cost))
+    jnew = jsweep(setup["jstate"], setup["js"])
+    tnew = tpm.propagation_sweep(
+        state_from_numpy(setup["planes"], setup["cost"], device="cpu"),
+        setup["ts"], setup["tp"], parity, tpm.MONOLITHIC_OFFSETS, t_cost)
     changed = ~np.all(np.asarray(jnew.planes) == setup["planes"], axis=-1)
     assert changed.mean() > 0.05, "the sweep accepted too little"
     _compare(jnew, tnew, parity, exact=True)

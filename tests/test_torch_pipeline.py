@@ -9,8 +9,9 @@ output writers against the JAX package.
   writers' for the same result, and the PNGs decode to the same pixels;
 * compute_depthmap through the census and the unfused rect costs passes
   the same gate; every rect layout passes check_supported;
-* off-slice settings raise NotImplementedError and the entry points do not
-  fall back to the CPU silently."""
+* off-slice settings raise NotImplementedError (shape quantization and
+  monolithic propagation no longer do) and the entry points do not fall
+  back to the CPU silently."""
 import dataclasses
 import os
 import subprocess
@@ -139,15 +140,24 @@ def test_build_rect_scene_matches_numpy_warp(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(cull_downscale=2),
-                                dict(rect_quantize_shapes=True),
+                                dict(cull_downscale=3, pyramid_levels=3),
                                 dict(cull_downscale=4,
                                      algorithm=MatchingAlgorithm.CENSUS),
-                                dict(propagation_variant="monolithic"),
+                                dict(level_dispatch="scan", pyramid_levels=3),
                                 dict(level_dispatch="scan")])
 def test_off_slice_settings_raise(kw):
     p = _verify_params().replace(**kw)
     with pytest.raises(NotImplementedError):
         tpipe.check_supported(p)
+
+
+@pytest.mark.parametrize("kw", [dict(rect_quantize_shapes=True),
+                                dict(propagation_variant="monolithic"),
+                                dict(rect_quantize_shapes=True,
+                                     propagation_variant="monolithic",
+                                     pyramid_levels=3)])
+def test_slice6_settings_supported(kw):
+    tpipe.check_supported(_verify_params().replace(**kw))
 
 
 # Every rect layout and cost: census, the unfused window_grads cost, full
