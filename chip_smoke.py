@@ -29,7 +29,7 @@ Phases, in order (any failure exits non-zero before the last line):
    outside [0, W-1], and in its rows launches of the census path's sparse
    (K=4 x 9 rows x 9 columns) and full (K=1 x 11 x 11) passes against the
    stack of one-row plain calls;
-4. ten paths on the 640x480, 7-camera bench scene, each driven through
+4. fourteen paths on the 640x480, 7-camera bench scene, each driven through
    compute_depthmap with the kernel counts set to 0 just before and read
    just after, each held to a launch count > 0 for every kernel it runs
    (permute2d carries every permutation of the rect-family paths)
@@ -49,7 +49,28 @@ Phases, in order (any failure exits non-zero before the last line):
    lerp gather; gfwd prints its error only: gipuma_tpu/config.py records
    salt-noise failures of that layout at native sampling); (monolithic)
    rect at one level with propagation_variant="monolithic", the batch
-   phase's run (d);
+   phase's run (d); (cull_downscale) the pyramid with cull_downscale=2
+   (bench.py --cull_downscale 2), its launches split between the sparse
+   passes on the nested grids, the sparse passes on full grids and the
+   full passes; (rect_scan, pyramid_scan, exact_scan) rect, pyramid and
+   exact with level_dispatch="scan" (each level one CUDA graph), the
+   rect and exact ones with host syncs made errors inside the capture;
+4c. (e) the nested cull scene of the cull_downscale pyramid's finest
+   level: permute2d bit-equal to its plain version at consumed coordinates
+   (forward K=4 f16 plane words, return f16 cost pairs) and the fused
+   cost within 1e-3 at covered pixels (K=4, cull box 9 / inc 4) on every
+   nested view; its grid's shape printed;
+4d. (f) the scan paths' depth, normals and cost bit-equal to the host
+   loop's from the same seed; a generator registered with a CUDA graph
+   draws, on every replay, the next uniforms of its stream (those an
+   eager call draws), not the captured ones again;
+4e. (g) eval/parity on the card: run_preset_parity for middlebury and
+   dtu_fast on the sos and noise textures (64x96, 3 iterations) and
+   run_cull_hard_scene for its three kinds, held to the thresholds of the
+   JAX package's tests/test_parity_presets.py and
+   tests/test_cull_hard_scenes.py; one `parity` JSON line per row;
+4f. (h) the native IO library (io/native.py) builds, and the rect path's
+   .dmb and .ply bytes from it equal the numpy writer's;
 4b. the batch phase, the scripts' path: a 16-camera ring at 640x480
    (Middlebury dinoSparseRing's view count and size) written to a
    temporary folder as 8-bit PNGs, one Middlebury par.txt and an
@@ -90,7 +111,10 @@ Phases, in order (any failure exits non-zero before the last line):
    two-pass chain it replaced; the fused cost at the full pass's K=1
    and the cull pass's K=4 shapes; the affine gather at one row and at
    the census path's rows launches, beside its path-level bound per
-   launch, counted by its wrapper from each launch's shape);
+   launch, counted by its wrapper from each launch's shape); each path's
+   line also holds its peak allocated memory and, for the scan paths, the
+   CUDA graph's capture seconds and replays per level; a `cull_downscale`
+   line beside the pyramid and a `scan_vs_host` line per scan path;
 6. the `kernels` JSON line, the card line, and the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -155,7 +179,14 @@ PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "full": ("permute2d", "row_gather_lerp"),
                 "gfwd": ("permute2d", "row_gather_lerp"),
                 "f32": ("permute2d", "row_gather_lerp"),
-                "monolithic": ("permute2d", "sdg_fused_cost")}
+                "monolithic": ("permute2d", "sdg_fused_cost"),
+                "cull_downscale": ("permute2d", "sdg_fused_cost"),
+                "rect_scan": ("permute2d", "sdg_fused_cost"),
+                "pyramid_scan": ("permute2d", "sdg_fused_cost"),
+                "exact_scan": ("bilinear_sample",)}
+# level_dispatch="scan" paths -> the host-loop path each must equal.
+SCAN_PATHS = {"rect_scan": "rect", "pyramid_scan": "pyramid",
+              "exact_scan": "exact"}
 # Paths whose median error is printed but not gated: grad_fwd's in-cell
 # gradient is out of phase at native sampling (gipuma_tpu/config.py).
 UNGATED = ("gfwd",)
@@ -248,6 +279,12 @@ def scene_setup():
         # 20 neighbour offsets per parity (batch phase, run (d)).
         "monolithic": rect.replace(propagation_variant="monolithic"),
     }
+    # bench.py --cull_downscale 2 on its default pyramid (bench.py:126-131,
+    # 156-157), and --dispatch scan on rect (--schedule reference), the
+    # pyramid and the exact path.
+    paths["cull_downscale"] = paths["pyramid"].replace(cull_downscale=2)
+    for label, host in SCAN_PATHS.items():
+        paths[label] = paths[host].replace(level_dispatch="scan")
     return images, rig, gt, Ps, paths
 
 
@@ -328,8 +365,9 @@ def profile_path(torch, job, card, run_s, label):
     used).  The device events are summed straight from the profiler's raw
     events: key_averages() post-processes every event in Python, minutes
     for a run of 10^5 launches.  Returns {port kernel: (device ms,
-    launches)} of that run and the wrappers' tallies of it ({kernel:
-    (launches, bytes moved)} for the kernels whose wrappers sum bytes)."""
+    launches)} of that run, the wrappers' tallies of it ({kernel:
+    (launches, bytes moved)} for the kernels whose wrappers sum bytes) and
+    {"device_s", "busy_share"} of the run against `run_s`."""
     from torch.profiler import ProfilerActivity, profile
     from gipuma_tpu_torch import kernels
     from gipuma_tpu_torch.pipeline import run_prepared_job
@@ -361,7 +399,8 @@ def profile_path(torch, job, card, run_s, label):
     if dev_total <= 0:
         log(json.dumps({"metric": "path_profile", "path": label,
                         "card": card, "device_time": "not measured"}))
-        return {}, moved
+        return {}, moved, {"device_s": "not measured",
+                           "busy_share": "not measured"}
     log(json.dumps({
         "metric": "path_profile", "path": label, "card": card,
         "wall_s_profiled": wall, "device_s": dev_total / 1e6,
@@ -372,7 +411,8 @@ def profile_path(torch, job, card, run_s, label):
                          for k, (ms, n) in port.items()},
         "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                 for us, k, c in rows[:12]]}))
-    return port, moved
+    return port, moved, {"device_s": dev_total / 1e6,
+                         "busy_share": dev_total / 1e6 / run_s}
 
 
 def bench_inputs(torch, scene, jparams, device, v0: int = 0):
@@ -487,6 +527,233 @@ def permute_bound(torch, x, c1, r, mask2):
     n_src = int(torch.unique(flat).numel())
     nbytes = 4 * (n_on + n_c1 + C * n_src + C * n_on)
     return nbytes / HBM_BPS * 1e3, nbytes
+
+def run_split(torch, params, images, Ps, device):
+    """compute_depthmap as prepare_job + run_prepared_job, with each
+    rect_per_view_costs_batch call's launches attributed to its pass: the
+    sparse passes on nested (cull_downscale) grids, the sparse passes on
+    full-resolution grids (the coarse level screens there) and the full
+    passes.  The attribution changes no launch.  Returns (result, {pass:
+    {kernel: launches}})."""
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.ops import rect_cost as rc
+    from gipuma_tpu_torch.pipeline import prepare_job, run_prepared_job
+    job = prepare_job(images, Ps, params, device=device)
+    inner = rc.rect_per_view_costs_batch
+    split = {}
+
+    def attributed(scene, p, parity, n, d, m_pack=None, cost_pack=False,
+                   extra_mask=None):
+        before = dict(kernels.counts)
+        out = inner(scene, p, parity, n, d, m_pack=m_pack,
+                    cost_pack=cost_pack, extra_mask=extra_mask)
+        if m_pack != "tri":
+            key = "full"
+        elif any(scene is f.result()[0].cull for f in job.prep):
+            key = "sparse_nested"
+        else:
+            key = "sparse_full_grid"
+        tally = split.setdefault(key, {})
+        for k, v in kernels.counts.items():
+            if v > before[k]:
+                tally[k] = tally.get(k, 0) + v - before[k]
+        return out
+
+    rc.rect_per_view_costs_batch = attributed
+    try:
+        res = run_prepared_job(job)
+    finally:
+        rc.rect_per_view_costs_batch = inner
+    return res, split
+
+
+def nested_kernel_checks(torch, job, device):
+    """(e): permute2d and the fused cost against their plain versions on
+    every view of the nested cull scene of the cull_downscale pyramid's
+    finest level (K=4 candidates, as the sparse pass launches them).
+    Returns (max permute error, max fused error, the nested scene, its
+    level params, the fused case of view 0 for timing)."""
+    from gipuma_tpu_torch.ops import rect_cost as rc
+    from gipuma_tpu_torch.ops.permute2d import permute2d_cuda, permute2d_plain
+    from gipuma_tpu_torch.ops.sdg_fused import (fused_sdg_cost_batch_cuda,
+                                                fused_sdg_cost_batch_plain)
+    scene, _, p_l, _ = job.prep[-1].result()
+    sc = scene.cull
+    if sc is None:
+        fail("cull_downscale: the finest level has no nested cull scene")
+    sp = p_l.replace(box_hsize=p_l.cull_box, box_vsize=p_l.cull_box,
+                     window_increment=p_l.cull_increment)
+    hr, wr = sc.ref_rect.shape[-2:]
+    log(f"  nested cull scene: {sc.num_views} views, rect "
+        f"{tuple(sc.ref_rect.shape)} (full {tuple(scene.ref_rect.shape)}), "
+        f"S {sc.fwd_c1.shape[-2]}, rot {sc.rotations()}")
+    err_p = err_f = 0.0
+    timing = None
+    for v, ok in enumerate(sc.valid_views()):
+        if not ok:
+            continue
+        m_words, abc_of = bench_inputs(torch, sc, p_l, device, v)
+        x = m_words(4, "tri")
+        for what, src, c1, r, m2 in (
+                ("fwd K=4 tri", x, sc.fwd_c1[v], sc.fwd_r[v], sc.fwd2_ok[v]),):
+            want = permute2d_plain(src, c1, r)
+            got = permute2d_cuda(src, c1, r, m2)
+            err_p = max(err_p, masked_equal(
+                got.transpose(1, 2)[None], want.transpose(1, 2)[None], m2,
+                f"nested view {v}: {what} {tuple(src.shape)}->"
+                f"{tuple(got.shape)}", "permute2d"))
+        abc = abc_of(4, "tri")
+        db = sc.disp_bounds[v].contiguous()
+        hw = sc.hw_valid[v].contiguous()
+        tm = sc.tile_ok[v].contiguous()
+        want = fused_sdg_cost_batch_plain(sc.ref_rect[v], sc.src_rect[v],
+                                          abc, sp, db[0], db[1])
+        got = fused_sdg_cost_batch_cuda(sc.ref_rect[v], sc.src_rect[v], abc,
+                                        sp, db, hw, tm)
+        cov = tm.to(torch.bool).repeat_interleave(8, 0).repeat_interleave(
+            128, 1)[:hr, :wr].clone()
+        hv, wv = (int(a) for a in hw.tolist())
+        cov[(hv + 7) // 8 * 8:] = False
+        cov[:, (wv + 127) // 128 * 128:] = False
+        diff = (got - want).abs()[:, cov]
+        e = float(diff.max()) if diff.numel() else 0.0
+        err_f = max(err_f, e)
+        log(f"  nested view {v}: fused K=4 cull box {sp.box_hsize}/inc "
+            f"{sp.window_increment}: {int(cov.sum())} covered px, max "
+            f"|diff| {e:.3g}")
+        if not e <= 1e-3:
+            fail(f"sdg_fused_cost differs from its plain version on the "
+                 f"nested cull scene, view {v}: {e}")
+        cw = rc._pack_f16_pairs(want).contiguous()
+        r2 = sc.ret2_ok[v]
+        want_r = permute2d_plain(cw, sc.ret_c1[v], sc.ret_r[v])
+        got_r = permute2d_cuda(cw, sc.ret_c1[v], sc.ret_r[v], r2)
+        err_p = max(err_p, masked_equal(
+            got_r.transpose(1, 2)[None], want_r.transpose(1, 2)[None], r2,
+            f"nested view {v}: ret f16 pairs {tuple(cw.shape)}->"
+            f"{tuple(got_r.shape)}", "permute2d"))
+        if timing is None:
+            timing = (sc.ref_rect[v], sc.src_rect[v], abc, sp, db, hw, tm,
+                      int(cov.sum()))
+    return err_p, err_f, sc, timing
+
+
+def alternate(torch, job_a, job_b, rounds: int = 2):
+    """Warm runs of two prepared jobs in turns (a, b, b, a each round), a
+    full garbage collection before each; returns their runtime_s lists."""
+    from gipuma_tpu_torch.pipeline import run_prepared_job
+    out = ([], [])
+    for _ in range(rounds):
+        for i in (0, 1, 1, 0):
+            gc.collect()
+            torch.cuda.synchronize()
+            out[i].append(run_prepared_job((job_a, job_b)[i]).runtime_s)
+    return out
+
+
+def preset_gate(r) -> list:
+    """tests/test_parity_presets.py's thresholds; the ones a row misses."""
+    checks = [
+        (r["exact"]["median"] < 8e-3, "exact median < 8e-3"),
+        (r["rect"]["median"] < 8e-3, "rect median < 8e-3"),
+        (r["rect"]["median"] < 2.0 * max(r["exact"]["median"], 2e-3),
+         "rect median < 2 x max(exact, 2e-3)"),
+        (r["gap"]["median"] < 1.2e-2, "gap median < 1.2e-2"),
+        (r["rect"]["valid_frac"] > 0.95, "rect valid_frac > 0.95"),
+        (r["rect_normals"]["median_deg"] < 1.5 * max(
+            r["exact_normals"]["median_deg"], 6.0),
+         "rect normals < 1.5 x max(exact normals, 6 deg)")]
+    return [what for ok, what in checks if not ok]
+
+
+def hard_scene_gate(r) -> list:
+    """tests/test_cull_hard_scenes.py's thresholds; the ones a row
+    misses."""
+    def same_class(cull, plain, med_cap=5e-3, p99_factor=2.5):
+        return (cull["median"] < max(2.0 * plain["median"], med_cap)
+                and cull["p99"] < max(p99_factor * plain["p99"],
+                                      10 * med_cap))
+    if r["kind"] == "two_plane":
+        checks = [(same_class(r["cull"], r["plain"]), "overall"),
+                  (same_class(r["cull_region"], r["plain_region"],
+                              p99_factor=3.0), "discontinuity band")]
+    elif r["kind"] == "textureless_patch":
+        checks = [(same_class(r["cull_outside"], r["plain_outside"]),
+                   "textured surround")]
+    else:
+        checks = [(same_class(r["cull"], r["plain"]), "overall")]
+    return [what for ok, what in checks if not ok]
+
+
+def parity_phase(device, card):
+    """(g): the parity harness on the card, held to the JAX tests'
+    thresholds."""
+    from gipuma_tpu_torch.eval.parity import (run_cull_hard_scene,
+                                              run_preset_parity)
+    rows = []
+    for preset, tex in (("middlebury", "sos"), ("dtu_fast", "sos"),
+                        ("middlebury", "noise"), ("dtu_fast", "noise")):
+        t0 = time.perf_counter()
+        r = run_preset_parity(preset, 64, 96, iterations=3, border=10,
+                              texture=tex, device=device)
+        bad = preset_gate(r)
+        log(json.dumps({"metric": "parity", "card": card, "row": r,
+                        "s": time.perf_counter() - t0, "misses": bad}))
+        if bad:
+            fail(f"parity {preset}/{tex}: misses {bad}")
+        rows.append(r)
+    for kind in ("two_plane", "textureless_patch", "low_contrast"):
+        t0 = time.perf_counter()
+        r = run_cull_hard_scene(kind, device=device)
+        bad = hard_scene_gate(r)
+        log(json.dumps({"metric": "parity_hard_scene", "card": card,
+                        "row": r, "s": time.perf_counter() - t0,
+                        "misses": bad}))
+        if bad:
+            fail(f"hard scene {kind}: misses {bad}")
+        rows.append(r)
+    return rows
+
+
+def native_io_phase(np, res, image, P):
+    """(h): the native IO library builds, and the .dmb / .ply bytes it
+    writes equal the numpy writer's (the native library switched off for
+    the second write); the native reader reads them back."""
+    from gipuma_tpu_torch.io import dmb, native, ply
+    if not native.available():
+        fail("native IO: the library did not build (g++)")
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        def write_all(tag):
+            dmb.write_dmb(os.path.join(td, f"{tag}_disp.dmb"), res.depth)
+            dmb.write_dmb(os.path.join(td, f"{tag}_normals.dmb"),
+                          res.normals)
+            n = ply.write_ply(os.path.join(td, f"{tag}.ply"), res.depth,
+                              res.normals, image, P)
+            return n
+        n_native = write_all("native")
+        lib, tried = native._lib, native._lib_tried
+        native._lib, native._lib_tried = None, True
+        try:
+            n_numpy = write_all("numpy")
+        finally:
+            native._lib, native._lib_tried = lib, tried
+        for name in ("disp.dmb", "normals.dmb", ".ply"):
+            a = open(os.path.join(td, f"native{'_' if name[0] != '.' else ''}"
+                                  f"{name}"), "rb").read()
+            b = open(os.path.join(td, f"numpy{'_' if name[0] != '.' else ''}"
+                                  f"{name}"), "rb").read()
+            out[name] = len(a)
+            if a != b:
+                fail(f"native IO: {name} bytes differ from the numpy "
+                     f"writer's ({len(a)} vs {len(b)} bytes)")
+        back = native.read_dmb_native(os.path.join(td, "native_normals.dmb"))
+        if back is None or not np.array_equal(back, res.normals):
+            fail("native IO: the native reader did not read the normals back")
+    log(f"  native IO: library {native._lib_path().name}, bytes equal "
+        f"{out}, {n_native} points (numpy {n_numpy})")
+    return out
+
 
 
 # The batch phase's folder: Middlebury dinoSparseRing's view count and
@@ -794,6 +1061,7 @@ def main() -> int:
         from gipuma_tpu_torch.pipeline import (compute_depthmap, prepare_job,
                                                run_prepared_job,
                                                write_outputs)
+        from gipuma_tpu_torch.models import patchmatch as tpmm
         from gipuma_tpu_torch.models.patchmatch import (init_state,
                                                         make_generator)
     except ImportError as e:
@@ -1097,13 +1365,23 @@ def main() -> int:
     # ---- 4. the paths -----------------------------------------------------
     interior = (slice(16, -16), slice(16, -16))
     runs = {}
+    split = {}
     for label in paths:
         stamp(f"path {label}: compute_depthmap")
+        # No other thread uses the card during the one-level scan paths'
+        # captures, so a host sync inside one is made an error there.
+        tpmm.CAPTURE_SYNC_DEBUG_MODE = (
+            "error" if label in ("rect_scan", "exact_scan") else "default")
+        tpmm.SCAN_LOG.clear()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        res = compute_depthmap(images, Ps, paths[label], device=device)
+        if label == "cull_downscale":
+            res, split = run_split(torch, paths[label], images, Ps, device)
+        else:
+            res = compute_depthmap(images, Ps, paths[label], device=device)
         e2e_s = time.perf_counter() - t0
         launches = dict(kernels.counts)
+        tpmm.CAPTURE_SYNC_DEBUG_MODE = "default"
         err = abs(res.depth[interior] - gt[interior]) / gt[interior]
         med = float(np.median(err))
         gate = 5e-3
@@ -1113,7 +1391,10 @@ def main() -> int:
         log(f"  median rel depth err {med:.5f} "
             f"({'not gated' if label in UNGATED else f'gate < {gate:.3g}'}),"
             f" run {res.runtime_s:.3f} s, end to end {e2e_s:.3f} s, "
-            f"launches {launches}")
+            f"launches {launches}"
+            + (f", CUDA graphs {tpmm.SCAN_LOG}" if tpmm.SCAN_LOG else ""))
+        if label in SCAN_PATHS and not tpmm.SCAN_LOG:
+            fail(f"{label}: no level ran as a CUDA graph")
         if not (np.isfinite(res.depth).all() and res.depth.shape == gt.shape):
             fail(f"{label}: depth map not finite or of the wrong shape")
         if label not in UNGATED and not med < gate:
@@ -1135,16 +1416,89 @@ def main() -> int:
         fail(f"write_outputs artifacts {got_files} != {want_files}")
     log(f"  artifacts: {got_files}")
 
+    # ---- 4c. (e) the nested cull scene's kernels --------------------------
+    stamp("(e) cull_downscale: kernels on the nested cull scene")
+    log(f"  launches by pass: {json.dumps(split)}")
+    if not split.get("sparse_nested", {}).get("sdg_fused_cost"):
+        fail("cull_downscale: no sparse pass ran on a nested grid")
+    # Prep with every level built, beside the same pyramid without it.
+    for label, key in (("pyramid", "pyramid_resolved"),
+                       ("cull_downscale", "cull_downscale")):
+        t0 = time.perf_counter()
+        pj = prepare_job(images, Ps, paths[label], device=device)
+        for f in pj.prep:
+            f.result()
+        prep_s[key] = time.perf_counter() - t0
+    jobs["cull_downscale"] = pj
+    err_p_nested, err_f_nested, nested, nested_case = nested_kernel_checks(
+        torch, jobs["cull_downscale"], device)
+    max_err_perm = max(max_err_perm, err_p_nested)
+    max_err_fused = max(max_err_fused, err_f_nested)
+    torch.cuda.synchronize()
+
+    # ---- 4d. (f) the scan against the host loop ---------------------------
+    stamp("(f) level_dispatch='scan' against the host loop")
+    for label, host in SCAN_PATHS.items():
+        a, b = runs[label]["res"], runs[host]["res"]
+        same = all(np.array_equal(np.asarray(x).view(np.int32),
+                                  np.asarray(y).view(np.int32))
+                   for x, y in ((a.depth, b.depth), (a.normals, b.normals),
+                                (a.cost, b.cost)))
+        log(f"  {label} vs {host}: depth, normals and cost "
+            f"{'bit-equal' if same else 'DIFFER'}; launches "
+            f"{runs[label]['launches']} vs {runs[host]['launches']}")
+        if not same:
+            fail(f"{label}: differs from the host loop ({host})")
+    # A registered generator draws, on every replay, the next uniforms of
+    # its stream (what an eager call draws), not the captured ones again.
+    g_gen = torch.Generator(device=device).manual_seed(9)
+    g_ref = torch.Generator(device=device).manual_seed(9)
+    g_out = torch.empty(1 << 16, device=device)
+    torch.rand(g_out.numel(), generator=g_gen, device=device)
+    torch.rand(g_out.numel(), generator=g_ref, device=device)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g_gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        g_out.copy_(torch.rand(g_out.numel(), generator=g_gen, device=device))
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    draws = []
+    for _ in range(3):
+        graph.replay()
+        draws.append(g_out.clone())
+    eager_same = all(torch.equal(d, torch.rand(g_out.numel(), generator=g_ref,
+                                               device=device)) for d in draws)
+    distinct = not any(torch.equal(draws[i], draws[j])
+                       for i in range(3) for j in range(i))
+    log(f"  graph replays of torch.rand: distinct {distinct}, equal to the "
+        f"eager stream {eager_same}")
+    if not (distinct and eager_same):
+        fail("a generator registered with a CUDA graph repeats or departs "
+             "from its stream across replays")
+    del graph, draws, g_out
+
+    # ---- 4e. (g) parity ---------------------------------------------------
+    stamp("(g) eval/parity on the card")
+    parity_phase(device, card)
+
+    # ---- 4f. (h) native IO ------------------------------------------------
+    stamp("(h) native IO")
+    native_io_phase(np, runs["rect"]["res"], images[0], rig.cameras[0].P)
+
     # ---- 4b. the scripts' path: a folder of views, CLI, fusion ----------
     batch = batch_phase(torch, np, device, card)
 
     # ---- 5. timings ----------------------------------------------------------
     stamp("timings")
-    for label in ("pyramid", "census", "unfused", "monolithic"):
+    for label in ("pyramid", "census", "unfused", "monolithic", "rect_scan",
+                  "pyramid_scan", "exact_scan"):
         t0 = time.perf_counter()
         jobs[label] = prepare_job(images, Ps, paths[label], device=device)
         prep_s[label] = time.perf_counter() - t0
-    prof, moved = {}, {}
+    prof, moved, warm, dev_info = {}, {}, {}, {}
     mp = h * w / 1e6
     gc_s = [0.0, None]
 
@@ -1162,13 +1516,18 @@ def main() -> int:
         # run, 1.27 s of its 1.93 s on an H100 80GB HBM3 at 700 W.
         gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
+        tpmm.SCAN_LOG.clear()
         m0 = torch.cuda.memory_stats()
         gc_s[0] = 0.0
         t0 = time.perf_counter()
         res2 = run_prepared_job(jobs[label])
         run_s = time.perf_counter() - t0
         m1 = torch.cuda.memory_stats()
+        warm[label] = dict(runtime_s=res2.runtime_s,
+                           peak_GB=torch.cuda.max_memory_allocated() / 1e9,
+                           graphs=list(tpmm.SCAN_LOG))
         log(json.dumps({"metric": "path", "path": label, "card": card,
                         "e2e_first_s": runs[label]["e2e_s"],
                         "first_runtime_s": runs[label]["res"].runtime_s,
@@ -1183,11 +1542,48 @@ def main() -> int:
                         "alloc_retries": m1["num_alloc_retries"]
                         - m0["num_alloc_retries"],
                         "reserved_GB": torch.cuda.memory_reserved() / 1e9,
+                        "peak_allocated_GB": warm[label]["peak_GB"],
+                        "cuda_graphs": warm[label]["graphs"],
                         "threads": threading.active_count()}))
-        prof[label], moved[label] = profile_path(torch, jobs[label], card,
-                                                 res2.runtime_s, label)
+        prof[label], moved[label], dev_info[label] = profile_path(
+            torch, jobs[label], card, res2.runtime_s, label)
         stamp(f"profiled {label}")
     gc.callbacks.remove(gc_clock)
+
+    # (e) beside the pyramid without cull_downscale; (f) beside the host
+    # loop.  Device seconds and busy share of the profiled runs; warm runs
+    # in turns (the host's clock wanders between phases: the rect warm run
+    # above read 0.69 s and 1.46 s in one call).
+    turns = {lb: alternate(torch, jobs[ref], jobs[lb])
+             for lb, ref in (("cull_downscale", "pyramid"),
+                             *SCAN_PATHS.items())}
+    nested_shape = tuple(nested.ref_rect.shape)
+    log(json.dumps({
+        "metric": "cull_downscale", "card": card,
+        "nested_grid": nested_shape,
+        "full_grid": tuple(jobs["cull_downscale"].prep[-1].result()[0]
+                           .ref_rect.shape),
+        "launches_by_pass": split,
+        "prep_s": prep_s["cull_downscale"],
+        "prep_s_pyramid": prep_s["pyramid_resolved"],
+        "warm_runs_in_turns_s": turns["cull_downscale"][1],
+        "warm_runs_in_turns_s_pyramid": turns["cull_downscale"][0],
+        "device": dev_info["cull_downscale"],
+        "device_pyramid": dev_info["pyramid"],
+        "median_rel_err": runs["cull_downscale"]["med"],
+        "median_rel_err_pyramid": runs["pyramid"]["med"]}))
+    for label, host in SCAN_PATHS.items():
+        log(json.dumps({
+            "metric": "scan_vs_host", "path": label, "host_path": host,
+            "card": card, "warm_runs_in_turns_s": turns[label][1],
+            "warm_runs_in_turns_s_host": turns[label][0],
+            "capture_s": [g["capture_s"] for g in warm[label]["graphs"]],
+            "replays": [g["replays"] for g in warm[label]["graphs"]],
+            "device": dev_info[label], "device_host": dev_info[host],
+            "peak_allocated_GB": warm[label]["peak_GB"],
+            "peak_allocated_GB_host": warm[host]["peak_GB"],
+            "launches": runs[label]["launches"],
+            "launches_host": runs[host]["launches"]}))
 
     def per_launch_ms(label, name):
         ms, n = prof[label].get(name, (0.0, 0))
@@ -1295,6 +1691,23 @@ def main() -> int:
                                                      "sdg_fused_cost")}
         log(json.dumps(fused_lines[label]))
     f_line = fused_lines["full"]
+    # The fused cost at the nested cull scene's shape (cull_downscale=2:
+    # the finest level's first nested view, K=4, cull box 9 / inc 4).
+    nref, nsrc, nabc, nsp, ndb, nhw, ntm, nnpx = nested_case
+    n_bound, n_by, _, _ = fused_bound(nsp, 4, nref.shape[0] // 3, nnpx)
+    fused_lines["nested"] = {
+        "kernel": "sdg_fused_cost", "card": card,
+        "shape": f"K=4 box {nsp.box_hsize}/inc {nsp.window_increment}, "
+                 f"nested ref {tuple(nref.shape)}, {nnpx} covered px",
+        "ms": graph_ms(lambda: fused_sdg_cost_batch_cuda(
+            nref, nsrc, nabc, nsp, ndb, nhw, ntm)),
+        "plain_ms": graph_ms(lambda: fused_sdg_cost_batch_plain(
+            nref, nsrc, nabc, nsp, ndb[0], ndb[1]), reps=3, rounds=3),
+        "library_ms": None, "bound_ms": n_bound, "bound_by": n_by,
+        "launches": runs["cull_downscale"]["launches"]["sdg_fused_cost"],
+        "main_path_ms_per_launch": per_launch_ms("cull_downscale",
+                                                 "sdg_fused_cost")}
+    log(json.dumps(fused_lines["nested"]))
 
     # The sampler at the exact path's largest launch: view 0, K=4
     # propagation candidates x 36 offsets.  Bound: per sample 8 B of
@@ -1448,6 +1861,8 @@ def main() -> int:
          "plain_ms": f_line["plain_ms"], "bound_ms": f_line["bound_ms"],
          "bound_by": f_line["bound_by"], "library_ms": None,
          "cull_shape": {k: fused_lines["cull"][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "nested_cull_shape": {k: fused_lines["nested"][k] for k in (
              "shape", "ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "bilinear_sample", "route": "cuda",
          "source": "gipuma_tpu_torch/csrc/sampling.cu",
@@ -1487,6 +1902,16 @@ def main() -> int:
     for row in kernel_rows:
         row["batch_launches"] = {r: ln[row["name"]]
                                  for r, ln in sorted(batch.items())}
+        # The paths of this slice: cull_downscale and the scan paths (their
+        # counts include every CUDA-graph replay), with the profiled device
+        # time per launch where the path runs the kernel.
+        row["new_path_launches"] = {
+            lb: runs[lb]["launches"][row["name"]]
+            for lb in ("cull_downscale", *SCAN_PATHS)}
+        row["new_path_ms_per_launch"] = {
+            lb: per_launch_ms(lb, row["name"])
+            for lb in ("cull_downscale", *SCAN_PATHS)
+            if row["name"] in PATH_KERNELS[lb]}
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

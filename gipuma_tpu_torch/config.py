@@ -5,9 +5,8 @@ module imports JAX through its package ``__init__``, so the port keeps its
 own copy).  Every field, default and preset is identical; the port's tests
 hold the two against each other.  Fields that tune only the TPU kernels
 (``fused_roll``, ``fused_block_rows``, ``use_pallas_sampler``) are accepted
-and have no effect on the port's output; fields that need a path the port
-does not have yet raise ``NotImplementedError`` in
-``pipeline.check_supported``.
+and have no effect on the port's output.  The port runs every setting the
+JAX package runs on one device.
 
 All defaults mirror the reference defaults exactly.
 """
@@ -105,8 +104,7 @@ class AlgorithmParams:
     # history and the measurements behind each default are in
     # gipuma_tpu/config.py.  The port runs every rect layout the JAX
     # package has: window_grads (fused or not), grad_fwd, full channels
-    # and f32 taps, PM or census; what it does not run yet raises in
-    # pipeline.check_supported.
+    # and f32 taps, PM or census, with or without cull_downscale.
     # The JAX package's choice between two samplers of the exact path (the
     # Pallas kernel or an XLA gather) that compute the same function.
     # Accepted; no effect here: the port has one sampler, the CUDA kernel
@@ -165,7 +163,8 @@ class AlgorithmParams:
     # Drop a source view whose pair cannot be rectified (it becomes an
     # invalid view) instead of failing the whole reference view over.
     rect_drop_unsupported_views: bool = True
-    # "host": one dispatch per sub-sweep; "scan": a level as one program.
+    # "host": one dispatch per sub-sweep; "scan": a level as one program
+    # (on the card one CUDA graph, models/patchmatch.run_iterations_scan).
     level_dispatch: str = "host"
     # All refinement rounds as one K-candidate batch around the sweep's
     # starting state (vs the reference's sequential rounds).

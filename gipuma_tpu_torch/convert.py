@@ -134,7 +134,8 @@ def rect_scene_from_numpy(tree: Mapping, device=None) -> RectScene:
 
     tree["base"] is the ScenePack dict; the other keys are RectScene
     fields (None or absent optional fields stay None).  ``spans`` keeps
-    its static shape; ``rot_k_host`` is filled from rot_k."""
+    its static shape; ``rot_k_host`` is filled from rot_k; a nested
+    ``cull`` scene (config.cull_downscale) carries across the same way."""
     device = resolve_device(device)
     kw = {"base": scene_pack_from_numpy(tree["base"], device)}
     for f in RectScene._fields:
@@ -149,8 +150,7 @@ def rect_scene_from_numpy(tree: Mapping, device=None) -> RectScene:
             continue
         kw[f] = _tensor(a, device, f)
     if tree.get("cull") is not None:
-        raise NotImplementedError("cull_downscale screening scenes are a "
-                                  "later slice of the port")
+        kw["cull"] = rect_scene_from_numpy(tree["cull"], device)
     kw["rot_k_host"] = tuple(int(k) for k in np.asarray(tree["rot_k"]))
     kw["valid_host"] = tuple(
         bool(v) for v in np.asarray(tree["base"]["view_valid"]))

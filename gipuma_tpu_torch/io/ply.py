@@ -6,8 +6,8 @@ The reference parallelizes its binary writer with OpenMP + critical-section
 writes; here the vertex buffer is assembled vectorized in numpy and written
 in one call, which is faster and deterministic.
 
-Counterpart of ``gipuma_tpu/io/ply.py``: ``write_ply``, the Python writer
-of ``write_ply_points`` (the fused cloud) and ``read_ply``.
+Counterpart of ``gipuma_tpu/io/ply.py``: ``write_ply``, ``write_ply_points``
+(the fused cloud; native writer or numpy) and ``read_ply``.
 """
 from __future__ import annotations
 
@@ -58,8 +58,16 @@ def write_ply_points(path: str | os.PathLike, points: np.ndarray,
                      normals: np.ndarray, colors: np.ndarray,
                      binary: bool = True) -> int:
     """Write an unstructured point list [N,3] (+normals [N,3], colors [N,3]
-    or [N]); returns N.  The JAX package's Python writer (its native C++
-    writer is a later slice of the port); the same bytes."""
+    or [N]); returns N.  Binary writes go through the native C++ writer
+    (io/native.py) when it builds, as in the JAX package (the reference
+    keeps this hot path native too, displayUtils.h:77-237), and through
+    numpy otherwise; the bytes are the same."""
+    if binary:
+        from .native import write_ply_native
+        n = write_ply_native(path, np.asarray(points), np.asarray(normals),
+                             np.asarray(colors))
+        if n is not None:
+            return n
     points = np.asarray(points)
     n = points.shape[0]
     out = np.empty(n, dtype=[

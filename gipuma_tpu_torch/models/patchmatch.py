@@ -19,14 +19,20 @@ updates, as in the JAX package).  Randomness comes from a torch.Generator
 seeded from params.seed; it gives other numbers than jax.random, so tests
 inject the JAX draws through ``refinement_sweep(uniforms=...)`` and
 ``convert.state_from_numpy``.  The iteration loop is a host loop of
-sub-sweeps (the JAX package's ``run_patchmatch_host_loop``).
+sub-sweeps (the JAX package's ``run_patchmatch_host_loop``), or under
+config.level_dispatch="scan" one CUDA graph per level
+(``run_iterations_scan``, the JAX package's whole-level lax.scan).
 """
 from __future__ import annotations
 
+import collections
+import functools
+import time
 from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import MAXCOST, AlgorithmParams
 from ..geometry import transforms as T
 from ..ops import checkerboard as cb
@@ -49,6 +55,17 @@ MONOLITHIC_OFFSETS = (
     (-1, 2), (1, 2), (-1, -2), (1, -2),
     (-2, -1), (-2, 1), (2, -1), (2, 1),
 )
+
+
+# torch.cuda.set_sync_debug_mode around each CUDA-graph capture of
+# run_iterations_scan.  "error" makes a host sync inside the captured sweeps
+# raise at the op that makes it; the mode is process-wide, so set it only
+# where no other thread works on the device meanwhile (chip_smoke.py does).
+CAPTURE_SYNC_DEBUG_MODE = "default"
+# One entry per level that run_iterations_scan ran as a CUDA graph, the
+# newest 256: {"capture_s", "replays", "launches_per_replay"} (chip_smoke.py
+# reads and clears it).
+SCAN_LOG: collections.deque = collections.deque(maxlen=256)
 
 
 class PMState(NamedTuple):
@@ -227,7 +244,7 @@ def refinement_sweep(state: PMState, scene, params: AlgorithmParams,
 
     schedule = params.refinement_schedule()
     R = len(schedule)
-    deltas = torch.tensor(schedule, dtype=torch.float32, device=dev)
+    deltas = _schedule(tuple(schedule), dev)
     delta_z = deltas[:, 0][:, None, None]                 # [R, 1, 1]
     delta_n = deltas[:, 1][:, None, None, None]           # [R, 1, 1, 1]
     if uniforms is None:
@@ -263,6 +280,14 @@ def refinement_sweep(state: PMState, scene, params: AlgorithmParams,
     return _write_back(state, scene, params, parity, n_now, d_now, c_now)
 
 
+@functools.lru_cache(maxsize=16)
+def _schedule(schedule: tuple, dev: torch.device) -> torch.Tensor:
+    """The refinement schedule [R, 2] as a float32 tensor on `dev`, made
+    once per (schedule, device): later sweeps copy nothing from the host,
+    so a CUDA graph can capture them."""
+    return torch.tensor(schedule, dtype=torch.float32, device=dev)
+
+
 def _refine_sequential(state: PMState, scene, params: AlgorithmParams,
                        parity: int, cost_fn, uniforms=None) -> PMState:
     """refinement_sweep's rounds in order (patchmatch.py:333-383 of the JAX
@@ -276,8 +301,7 @@ def _refine_sequential(state: PMState, scene, params: AlgorithmParams,
     c_now = cb.extract(state.cost, parity)
     depth_now = T.depth_from_plane(n_now, d_now, x, y, scene.fx, scene.cx,
                                    scene.cy, scene.alpha_focal)
-    deltas = torch.tensor(params.refinement_schedule(), dtype=torch.float32,
-                          device=dev)
+    deltas = _schedule(tuple(params.refinement_schedule()), dev)
     tex_ok = (cb.extract(scene.texture_ok, parity)
               if params.no_texture_check else None)
     for r in range(deltas.shape[0]):
@@ -333,12 +357,124 @@ def iteration(state: PMState, scene, params: AlgorithmParams,
     return state
 
 
+def run_iterations_scan(state: PMState, scene, params: AlgorithmParams,
+                        cost_fn) -> PMState:
+    """All iterations of a level as one device program (the JAX package's
+    ``run_iterations_scan``, patchmatch.py:474-507): per iteration and
+    parity, axial propagation at distance 1, then 5 under far_propagation,
+    then refinement under refine.  Like that runner it does not read
+    propagation_variant.
+
+    On the card the level is one CUDA graph.  Iteration 1 runs eagerly: it
+    is the warm-up (kernel builds, cached constants, the fused kernel's
+    shared-memory attributes) and the real first iteration.  The state is
+    copied into static planes / cost tensors, one iteration's sweeps are
+    captured, ending with a copy of their result into those tensors, and
+    the graph is replayed iterations - 1 times, each replay starting from
+    the last one's state.  A level of one iteration is therefore the host
+    loop exactly.  The refinement draws come from ``state.gen``, registered
+    with the graph, so every replay draws the uniforms the host loop would
+    draw at that iteration.  A capture that fails raises; there is no
+    fallback to the host loop.  On the CPU the schedule runs eagerly."""
+    dists = (1, 5) if params.far_propagation else (1,)
+
+    def one_iteration(s: PMState) -> PMState:
+        for parity in (0, 1):
+            for dist in dists:
+                s = axial_propagation_sweep(s, scene, params, parity, dist,
+                                            cost_fn)
+            if params.refine:
+                s = refinement_sweep(s, scene, params, parity, cost_fn)
+        return s
+
+    if params.iterations < 1:
+        return state
+    state = one_iteration(state)
+    if state.planes.device.type != "cuda":
+        for _ in range(params.iterations - 1):
+            state = one_iteration(state)
+        return state
+    return _replay_level(one_iteration, state, params.iterations - 1)
+
+
+def _replay_level(step, state: PMState, replays: int) -> PMState:
+    """Capture `step` (one iteration) once as a CUDA graph on a side stream
+    and replay it `replays` times from static state tensors.  The kernel
+    wrappers count their launches while the graph is captured, where
+    nothing runs; the counts are set to those captured launches times the
+    replays."""
+    if replays < 1:
+        return state
+    if state.gen is not None and not hasattr(torch.cuda.CUDAGraph,
+                                             "register_generator_state"):
+        raise RuntimeError(
+            "level_dispatch='scan': this torch cannot register a "
+            "torch.Generator with a CUDA graph (register_generator_state)")
+    dev = state.planes.device
+    planes = state.planes.clone()
+    cost = state.cost.clone()
+    graph = torch.cuda.CUDAGraph()
+    if state.gen is not None:
+        graph.register_generator_state(state.gen)
+    before = ({k: kernels.counts[k] for k in kernels.counts},
+              {k: kernels.bytes_moved[k] for k in kernels.bytes_moved})
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    debug_mode = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.stream(stream):
+            torch.cuda.set_sync_debug_mode(CAPTURE_SYNC_DEBUG_MODE)
+            # thread_local: the pyramid's and run_batch's scene builds on
+            # other threads may go on using the device meanwhile.
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = step(PMState(planes, cost, state.gen))
+                planes.copy_(out.planes)
+                cost.copy_(out.cost)
+                del out
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass   # the capture is invalid; the first error says why
+                raise
+            graph.capture_end()
+    except Exception as e:
+        raise RuntimeError(
+            "level_dispatch='scan': capturing one iteration as a CUDA graph "
+            f"failed ({type(e).__name__}: {e}); the traceback names the op"
+        ) from e
+    finally:
+        torch.cuda.set_sync_debug_mode(debug_mode)
+        captured = tuple({k: d[k] - b[k] for k in d} for d, b in zip(
+            (kernels.counts, kernels.bytes_moved), before))
+        # The capture itself launched nothing.
+        for d, b in zip((kernels.counts, kernels.bytes_moved), before):
+            d.update(b)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    capture_s = time.perf_counter() - t0
+    for _ in range(replays):
+        graph.replay()
+    for d, b, c in zip((kernels.counts, kernels.bytes_moved), before,
+                       captured):
+        for k in d:
+            d[k] = b[k] + c[k] * replays
+    SCAN_LOG.append({"capture_s": capture_s, "replays": replays,
+                     "launches_per_replay": dict(captured[0])})
+    del graph
+    return PMState(planes=planes, cost=cost, gen=state.gen)
+
+
 def run_patchmatch(scene, params: AlgorithmParams, gen: torch.Generator,
                    cost_fn, state: PMState | None = None) -> PMState:
     """Init (unless a warm-start `state` is given) + `params.iterations`
-    iterations, sub-sweep by sub-sweep from the host."""
+    iterations: sub-sweep by sub-sweep from the host, or under
+    config.level_dispatch="scan" as one CUDA graph (run_iterations_scan)."""
     if state is None:
         state = init_state(scene, params, gen, cost_fn)
+    if params.level_dispatch == "scan":
+        return run_iterations_scan(state, scene, params, cost_fn)
     for _ in range(params.iterations):
         state = iteration(state, scene, params, cost_fn)
     return state

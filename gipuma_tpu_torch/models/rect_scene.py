@@ -20,8 +20,10 @@ Raises RectifyUnsupported when no pair can be row-rectified; single
 unsupported pairs become invalid views (config.rect_drop_unsupported_views).
 Under config.rect_quantize_shapes the scene's shapes round up to coarse
 buckets, merged across a scan by a ShapeBucketLedger, with zero-work dummy
-views padding the view count.  cull_downscale screening scenes are a later
-slice of the port.
+views padding the view count.  With config.cull_downscale > 1 (and the
+two-stage cull) a nested screening scene is built at 1/cull_downscale of
+the resolution over the strided view subset and attached as
+``scene.cull``.
 """
 from __future__ import annotations
 
@@ -80,6 +82,25 @@ def _dummy_pair(t):
             build_tables(np.zeros((8, 8)), np.zeros((8, 8)), 8, 8),
             0, 128, 0, (0.0, 1.0), np.zeros((1, 1), np.int32),
             np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32))
+
+
+def _gauss_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Gaussian anti-alias prefilter for downscaled cull builds ([H, W] or
+    [H, W, C] f32): the JAX package's separable numpy convolution (it
+    prefers cv2.GaussianBlur when cv2 imports; the port never does), kernel
+    radius ceil(3*sigma), edge-replicated borders."""
+    if sigma <= 0:
+        return img
+    rad = max(1, int(np.ceil(3.0 * sigma)))
+    xs = np.arange(-rad, rad + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    k /= k.sum()
+    pad = [(rad, rad), (0, 0)] + [(0, 0)] * (img.ndim - 2)
+    a = np.pad(img, pad, mode="edge")
+    a = sum(k[i] * a[i:i + img.shape[0]] for i in range(2 * rad + 1))
+    pad = [(0, 0), (rad, rad)] + [(0, 0)] * (img.ndim - 2)
+    a = np.pad(a, pad, mode="edge")
+    return sum(k[i] * a[:, i:i + img.shape[1]] for i in range(2 * rad + 1))
 
 
 def _gather_reach(hrad: int, params: AlgorithmParams) -> int:
@@ -311,20 +332,30 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                      depth_min: float, depth_max: float,
                      base=None, max_blowup: float = 8.0,
                      ledger: ShapeBucketLedger | None = None,
+                     rect_scale: float = 1.0,
+                     routing_strict: bool = True,
                      device=None) -> tuple[RectScene, dict]:
     """Build the rect-path scene on `device`; returns (RectScene, info).
 
     `base` lets callers reuse an existing ScenePack (build_scene
     otherwise).  max_blowup: reject pairs whose rect window exceeds this
     multiple of the image area.  ledger: a ShapeBucketLedger shared across
-    a scan (config.rect_quantize_shapes).  device: None means the card (it
-    raises when CUDA is absent); pass "cpu" explicitly for the CPU."""
+    a scan (config.rect_quantize_shapes).  rect_scale < 1 builds
+    downscaled rect grids (config.cull_downscale's screening scene): the
+    density normalization and the routing slope targets scale together.
+    routing_strict=False accepts whatever plane-routing exactness the
+    first build attempt yields (cull scenes: mispicks are ranking noise)
+    instead of retrying and raising.  device: None means the card (it
+    raises when CUDA is absent); pass "cpu" explicitly for the CPU.
+
+    With config.rect_two_stage_cull + cull_downscale > 1 (and rect_scale
+    == 1), a nested cull RectScene is built over the cull_view_stride view
+    subset at rect_scale = 1/cull_downscale with the cull window geometry
+    and attached as `scene.cull` (info["cull"] holds its info, or
+    {"error": ...} when it cannot be built; the sparse pass then reads
+    the strided views of this scene, as in the JAX package)."""
     from ..pipeline import resolve_device
     device = resolve_device(device)
-    if (int(params.cull_downscale) > 1 and params.rect_two_stage_cull
-            and params.pack_taps and params.window_grads):
-        raise NotImplementedError(
-            "cull_downscale screening scenes are slice 7")
     if base is None:
         base = build_scene(images, rig, view_subset, params,
                            depth_min, depth_max, lite=True, device=device)
@@ -355,7 +386,8 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
             area = 0.5 * abs(sum(
                 q[i, 0] * q[(i + 1) % 4, 1] - q[(i + 1) % 4, 0] * q[i, 1]
                 for i in range(4)))
-            s = float(np.clip(np.sqrt(h * w / max(area, 1.0)), 0.25, 4.0))
+            s = float(np.clip(np.sqrt(h * w / max(area, 1.0)),
+                              0.25, 4.0)) * rect_scale
             K_base = np.diag([s, s, 1.0]) @ rect.K_new
             rect = rectify_pair(ref_cam.K, cam.K, cam.R, cam.t, K_new=K_base)
         except ValueError as e:
@@ -388,7 +420,10 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
         # corners would otherwise blow the supersampling factor for the
         # whole window; the few corner pixels whose slopes stay < 1 are
         # counted against the routing-exactness budget below instead.
-        slope_req = float(params.rect_slope_req)
+        # Downscaled builds scale the slope targets with the resolution:
+        # enforcing slopes >= 1 at rect_scale 0.5 would supersample right
+        # back to full resolution.
+        slope_req = float(params.rect_slope_req) * rect_scale
         routing_budget = float(params.rect_routing_budget)
         scale_cap = 2.5
         du, dv, dyr = _map_slopes(rect.T_ref, k_rot, h, w)
@@ -575,7 +610,7 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
             n_bad_fwd = int(fwd.affected[tgt].sum())
 
             bad_frac = (n_dup + n_bad_ret + n_bad_fwd) / max(n_valid, 1)
-            if bad_frac <= routing_budget:
+            if bad_frac <= routing_budget or not routing_strict:
                 built = (rect, lo, hr, wr, in_ref, orig_ok, fwd, ret,
                          tgt, bad_frac, (qy, qx, R_f, C_f))
                 break
@@ -736,10 +771,8 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
         vt = max(len(per_pair),
                  int(params.rect_pad_views_to) or int(params.max_views))
         if ledger is not None:
-            # The JAX package keys by (h, w, rect_scale); the port builds
-            # at rect_scale 1 only.
             fl = ledger.apply(
-                (h, w, 1.0),
+                (h, w, round(rect_scale, 4)),
                 dict(hrp=hrp, wrp=wrp, max_range=max_range,
                      span_perm=span_perm, views=vt))
             hrp, wrp, vt = fl["hrp"], fl["wrp"], fl["views"]
@@ -832,4 +865,38 @@ def build_rect_scene(images: Sequence[np.ndarray], rig: Rig,
                       valid_host=valid_host)
     info["rect_shape_padded"] = (hrp, wrp)
     info["spans"] = (span_sample, span_perm)
+
+    # Nested screening scene (config.cull_downscale): downscaled rect grids
+    # over the strided view subset, built with the cull window geometry so
+    # its gradient channels, spans and masks match the sparse pass.  A
+    # build that cannot rectify leaves the sparse pass on the strided views
+    # of this scene (ops/rect_cost._slice_views), as in the JAX package.
+    cds = int(params.cull_downscale)
+    if (rect_scale == 1.0 and cds > 1 and params.rect_two_stage_cull
+            and params.pack_taps and params.window_grads):
+        stride = max(1, int(params.cull_view_stride))
+        sub_c = list(view_subset)[::stride]
+        vt_main = max(len(view_subset),
+                      int(params.rect_pad_views_to) or int(params.max_views))
+        params_c = params.replace(
+            box_hsize=int(params.cull_box), box_vsize=int(params.cull_box),
+            window_increment=int(params.cull_increment),
+            rect_two_stage_cull=False, cull_downscale=1,
+            rect_pad_views_to=-(-vt_main // stride))
+        # Anti-alias prefilter: the downscaled warp decimates the images
+        # ~cds-fold, and point sampling would alias.  sigma =
+        # 0.5*sqrt(cds^2 - 1), the standard pyramid prefilter; the state
+        # grid is unchanged, only the warped rect channels see the blur.
+        sigma = 0.5 * float(np.sqrt(cds * cds - 1.0))
+        images_c = [_gauss_blur(np.asarray(im, np.float32), sigma)
+                    for im in images]
+        try:
+            cull_scene, cull_info = build_rect_scene(
+                images_c, rig, sub_c, params_c, depth_min, depth_max,
+                base=None, max_blowup=max_blowup, ledger=ledger,
+                rect_scale=1.0 / cds, routing_strict=False, device=device)
+            scene = scene._replace(cull=cull_scene)
+            info["cull"] = cull_info
+        except RectifyUnsupported as e:
+            info["cull"] = {"error": str(e)}
     return scene, info

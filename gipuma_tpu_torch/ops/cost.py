@@ -18,6 +18,7 @@ another, so one view's [K, O, H, W2] intermediates are live at a time.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -129,6 +130,16 @@ def _center(scene: ScenePack, v: int, warp: _Warp) -> torch.Tensor:
         - scene.b[v] * warp.mr[..., None]
 
 
+@functools.lru_cache(maxsize=64)
+def _offset_axes(offsets: tuple, dtype: torch.dtype, dev: torch.device):
+    """The window offsets' dx and dy as [1, O, 1, 1] tensors on `dev`, made
+    once per (offsets, dtype, device): a later evaluation copies nothing
+    from the host, so a CUDA graph can capture it."""
+    dxs = torch.tensor([o[0] for o in offsets], dtype=dtype, device=dev)
+    dys = torch.tensor([o[1] for o in offsets], dtype=dtype, device=dev)
+    return dxs[None, :, None, None], dys[None, :, None, None]
+
+
 def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Source-view-v positions of every candidate's window: (xw, yw), each
@@ -138,11 +149,7 @@ def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
     u = _center(scene, v, warp)
     ax = T._matvec(Av, scene.k1inv_c0) - bv * warp.mc0[..., None]
     ay = T._matvec(Av, scene.k1inv_c1) - bv * warp.mc1[..., None]
-    dev = u.device
-    dxs = torch.tensor([o[0] for o in offsets], dtype=u.dtype, device=dev)
-    dys = torch.tensor([o[1] for o in offsets], dtype=u.dtype, device=dev)
-    dxs = dxs[None, :, None, None]
-    dys = dys[None, :, None, None]
+    dxs, dys = _offset_axes(tuple(map(tuple, offsets)), u.dtype, u.device)
 
     def comp(i):
         return (u[:, None, ..., i] + dxs * ax[:, None, ..., i]) \
@@ -247,7 +254,8 @@ def combine_view_costs(costs: torch.Tensor, params: AlgorithmParams,
         num_best = num_valid
     elif params.cost_comb == CostCombination.GOOD:
         if view_valid is None:
-            n_real = torch.tensor(V, dtype=torch.int32, device=costs.device)
+            n_real = torch.full((), V, dtype=torch.int32,
+                                device=costs.device)
         else:
             n_real = view_valid.to(torch.int32).sum()
         num_best = torch.zeros_like(num_valid) + n_real

@@ -20,6 +20,7 @@ stay on the device; the only host values are static: the rotation counts
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -60,7 +61,11 @@ class RectScene(NamedTuple):
     tile_ok: torch.Tensor = None   # [V, Hrp/8, Wrp/128] int32
     fwd2_ok: torch.Tensor = None   # [V, Wrp/8, ceil(Hrp/128)]
     ret2_ok: torch.Tensor = None   # [V, ceil(S/8), ceil(S/128)]
-    cull: "RectScene" = None       # cull_downscale scene: a later slice
+    # Nested screening scene (config.cull_downscale): downscaled rect grids
+    # over the cull_view_stride view subset, built with the cull window
+    # geometry (models/rect_scene.build_rect_scene); the sparse pass of the
+    # two-stage cull reads it when present.
+    cull: "RectScene" = None
     # Host copy of rot_k (python ints): picks each view's rotation without
     # a device sync.
     rot_k_host: tuple = ()
@@ -224,6 +229,15 @@ def _unpack_m_tri(mp: torch.Tensor, k: int) -> torch.Tensor:
     return _unpack_f16_pairs(mp, 3 * k).reshape(k, 3, *mp.shape[1:])
 
 
+@functools.lru_cache(maxsize=64)
+def _const(values: tuple, dtype: torch.dtype, dev: torch.device
+           ) -> torch.Tensor:
+    """`values` as a tensor on `dev`, made once per (values, dtype, device):
+    a later call copies nothing from the host, so a CUDA graph can capture
+    it."""
+    return torch.tensor(values, dtype=dtype, device=dev)
+
+
 def _iotas(hr: int, wr: int, dev):
     """Column and row index grids as float32 [hr, wr]."""
     xg = torch.arange(wr, device=dev).to(torch.float32)[None, :].expand(hr, wr)
@@ -252,7 +266,7 @@ def _row_positions(abc_k, dxs, dy: int, bounds) -> torch.Tensor:
     given.  [K*E, Hr, Wr]."""
     K, _, hr, wr = abc_k.shape
     xg, yg = _iotas(hr, wr, abc_k.device)
-    dx_e = torch.tensor(dxs, dtype=torch.float32, device=abc_k.device)
+    dx_e = _const(tuple(dxs), torch.float32, abc_k.device)
     xse = xg[None, None] + dx_e[None, :, None, None]          # [1, E, hr, wr]
     disp = (abc_k[:, 0, None] * xse
             + (abc_k[:, 1] * (yg + float(dy)) + abc_k[:, 2])[:, None])
@@ -265,7 +279,7 @@ def _default_bounds(disp_bounds, dev) -> torch.Tensor:
     """The clamp of the sampling paths: disp_bounds, or (-1e9, 1e9)."""
     if disp_bounds is not None:
         return disp_bounds
-    return torch.tensor([-1e9, 1e9], dtype=torch.float32, device=dev)
+    return _const((-1e9, 1e9), torch.float32, dev)
 
 
 def rect_window_cost(ref_rect: torch.Tensor, ref_gx: torch.Tensor,
@@ -380,7 +394,8 @@ def _rect_pair_cost_batch_census(ref_chw, src_chw, abc_k,
     src_center = gather_row(0, [0])                              # [K, 1, Hr, Wr]
     rows = torch.arange(hr, device=dev)
     cols = (torch.arange(wr, device=dev)[None, :]
-            + torch.tensor(xs_all, device=dev)[:, None]).clamp(0, wr - 1)
+            + _const(tuple(xs_all), torch.int64, dev)[:, None]).clamp(
+                0, wr - 1)
     acc = torch.zeros((K, hr, wr), dtype=torch.float32, device=dev)
     dys = list(range(-vr, vr + 1))
     if packed:   # every window row in one launch: [R, K, E, C, Hr, Wr]
@@ -592,20 +607,23 @@ def rect_multiview_cost_batch(scene: RectScene, params: AlgorithmParams,
     pass ranks the K candidates per pixel (cull_box at cull_increment, on
     every cull_view_stride-th view), the full window is evaluated only for
     each pixel's sparse winner (first minimum), and the losers report
-    MAXCOST.  cur = (n_now, d_now) joins the sparse pass under
+    MAXCOST.  The sparse pass runs on ``scene.cull`` (config.cull_downscale:
+    downscaled, already view-strided) when the scene has one; its ranking
+    masks stay on the full-resolution state grid.  cur = (n_now, d_now)
+    joins the sparse pass under
     config.cull_early_term; pixels whose best candidate does not beat it
     (plus cull_early_slack) skip the full pass."""
     K = n.shape[0]
     if (K > 1 and params.rect_two_stage_cull
             and params.pack_taps and params.window_grads):
-        if scene.cull is not None:
-            raise NotImplementedError(
-                "cull_downscale screening scenes are slice 7")
         sp = params.replace(box_hsize=int(params.cull_box),
                             box_vsize=int(params.cull_box),
                             window_increment=int(params.cull_increment))
         stride = max(1, int(params.cull_view_stride))
-        sc_s = scene if stride == 1 else _slice_views(scene, stride)
+        if scene.cull is not None:
+            sc_s = scene.cull
+        else:
+            sc_s = scene if stride == 1 else _slice_views(scene, stride)
         cpk = bool(params.cull_pack)
         early = cur is not None and params.cull_early_term
         n_s, d_s = n, d

@@ -10,10 +10,8 @@ planner thread while view i runs.
 
 Entry points run on the card: ``device=None`` means ``cuda``, and raises
 when CUDA is absent.  Pass ``device="cpu"`` to run the plain versions of
-the kernels on the CPU.  Settings that need a path the port does not have
-yet raise NotImplementedError (``check_supported``); the one fallback is
-the JAX package's own, rect to exact where the rig cannot be rectified,
-and it prints a line.
+the kernels on the CPU.  The one fallback is the JAX package's own, rect
+to exact where the rig cannot be rectified, and it prints a line.
 """
 from __future__ import annotations
 
@@ -53,27 +51,6 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but CUDA is not available")
     return device
-
-
-# (condition, what it needs) for every setting the port cannot run yet.
-# The rect-only settings are checked when the rect path is asked for; the
-# exact path ignores them, as in the JAX package.
-_LATER = [
-    (lambda p: p.cost_path == "rect"
-     and p.cull_downscale > 1 and p.rect_two_stage_cull
-     and p.pack_taps and p.window_grads,
-     "cull_downscale screening scenes are slice 7"),
-    (lambda p: p.level_dispatch != "host",
-     "level_dispatch='scan' is slice 7"),
-]
-
-
-def check_supported(params: AlgorithmParams) -> None:
-    """Raise NotImplementedError, naming the later slice, for settings
-    the port does not run yet."""
-    for cond, what in _LATER:
-        if cond(params):
-            raise NotImplementedError(f"gipuma_tpu_torch: {what}")
 
 
 @dataclasses.dataclass
@@ -122,7 +99,6 @@ def prepare_job(images: Sequence[np.ndarray],
     package.  ledger: a rect_scene.ShapeBucketLedger shared across a scan
     (config.rect_quantize_shapes; run_batch threads one through)."""
     device = resolve_device(device)
-    check_supported(params)
     order = [ref_index] + [i for i in range(len(images)) if i != ref_index]
     images = [np.asarray(images[i], dtype=np.float32) for i in order]
     Ps = [np.asarray(P_matrices[i]) for i in order]
@@ -275,7 +251,6 @@ def run_batch(image_paths: Sequence[str], params: AlgorithmParams,
     from concurrent.futures import ThreadPoolExecutor
 
     device = resolve_device(device)
-    check_supported(params)
     names = [Path(p).name for p in image_paths]
     Ps = calib_io.load_projection_matrices(
         names, p_folder=p_folder, krt_file=krt_file,

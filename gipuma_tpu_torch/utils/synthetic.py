@@ -177,3 +177,81 @@ def plane_scene(num_cams: int = 4, h: int = 64, w: int = 80,
             gt_depth = depth.astype(np.float32)
     rig = build_rig(Ps)
     return images, rig, gt_depth, (n, d)
+
+
+def two_plane_scene(num_cams: int = 5, h: int = 64, w: int = 80,
+                    focal: float = 120.0, depth_near: float = 4.0,
+                    depth_far: float = 6.0, split: float = 0.45,
+                    texture: str = "sos"):
+    """A scene with a depth discontinuity: a near plane occupies the left
+    `split` fraction of the reference view, a far plane the rest.  Exercises
+    occlusion boundaries and propagation across discontinuities.
+
+    Returns (images, rig, gt_depth for camera 0, near_mask).  Rendering
+    handles occlusion exactly: for each pixel the nearer plane intersection
+    wins; the near plane is finite (a vertical slab in world space), the
+    far plane infinite.
+    """
+    n = np.array([0.0, 0.0, 1.0])
+    d_near = -depth_near
+    d_far = -depth_far
+
+    # World x extent of the near slab: covers rays through reference pixels
+    # x < split*w at depth_near.
+    Ps = make_ring_P(num_cams, h, w, focal, target_depth=depth_far)
+    K = Ps[0][:, :3]
+    x_edge = (split * w - K[0, 2]) / K[0, 0] * depth_near
+
+    images, gt_depth, near_mask = [], None, None
+    for i, P in enumerate(Ps):
+        Xn, dn = intersect_plane(P, h, w, n, d_near)
+        Xf, df = intersect_plane(P, h, w, n, d_far)
+        near_valid = (Xn[..., 0] <= x_edge) & (dn > 0)
+        use_near = near_valid & ((dn < df) | (df <= 0))
+        X = np.where(use_near[..., None], Xn, Xf)
+        depth = np.where(use_near, dn, df)
+        tex = TEXTURES[texture](X)
+        # Distinguish the two surfaces slightly so the discontinuity has
+        # image evidence.
+        tex = np.where(use_near, tex * 0.85 + 20.0, tex)
+        images.append(tex.astype(np.float32))
+        if i == 0:
+            gt_depth = depth.astype(np.float32)
+            near_mask = use_near
+    rig = build_rig(Ps)
+    return images, rig, gt_depth, near_mask
+
+
+def plane_scene_for_rig(Ps, h: int, w: int, plane_depth: float,
+                        slant: tuple[float, float] = (0.0, 0.0),
+                        ref: int = 0, texture: str = "sos"):
+    """plane_scene for an arbitrary calibrated rig (such as a real DTU
+    camera geometry): render the analytic texture plane placed
+    `plane_depth` along the reference camera's principal axis, its normal
+    tilted by `slant` in the reference camera frame.
+
+    Returns (images [h,w] float32 list, gt_depth for camera `ref`,
+    (n_world, d_world)).
+    """
+    from ..geometry.camera import decompose_projection
+
+    P0 = np.asarray(Ps[ref], np.float64)
+    K0, R0, t0 = decompose_projection(P0)[:3]
+    M_inv = np.linalg.inv(P0[:, :3])
+    C0 = -M_inv @ P0[:, 3]
+    z = R0[2] / np.linalg.norm(R0[2])          # principal axis (world)
+    n_cam = np.array([slant[0], slant[1], 1.0])
+    n_cam /= np.linalg.norm(n_cam)
+    n = R0.T @ n_cam
+    point = C0 + plane_depth * z
+    d = -n @ point
+
+    tex_scale = 5.0 / plane_depth   # depth-normalized texture frequency
+    tex = TEXTURES[texture]
+    images, gt_depth = [], None
+    for i, P in enumerate(Ps):
+        X, depth = intersect_plane(np.asarray(P, np.float64), h, w, n, d)
+        images.append(tex(X * tex_scale).astype(np.float32))
+        if i == ref:
+            gt_depth = depth.astype(np.float32)
+    return images, gt_depth, (n, d)

@@ -331,3 +331,135 @@ def test_row_gather_affine_kernel_global_branch(cuda_device, E):
     assert _same(got, want)
     got1 = trg.row_gather_affine_cuda(src, abc, dxs, 4.0, db, 4)
     assert _same(got1, want[2])
+
+
+def _ring(cuda_device, h=96, w=128, **kw):
+    """A rect job on the card: a 5-camera ring at h x w with the bench's
+    two-stage cull (cull_view_stride 2) and the settings `kw`."""
+    from gipuma_tpu_torch import pipeline as tpipe
+    from gipuma_tpu_torch.utils.synthetic import make_ring_P, plane_scene
+    images, _, gt, _ = plane_scene(num_cams=5, h=h, w=w, focal=1.25 * w,
+                                   plane_depth=5.0, slant=(0.2, -0.1),
+                                   texture="noise")
+    Ps = make_ring_P(5, h, w, 1.25 * w, target_depth=5.0)
+    p = AlgorithmParams(box_hsize=11, box_vsize=11, iterations=3,
+                        depth_min=3.0, depth_max=8.0, min_angle=0.01,
+                        max_angle=60.0, cost_path="rect",
+                        rect_two_stage_cull=True,
+                        cull_view_stride=2).replace(**kw)
+    return tpipe.prepare_job(images, Ps, p, device=cuda_device), gt
+
+
+def test_cull_scene_kernels_match_plain(cuda_device):
+    """The fused cost and permute2d at the nested cull scene's shapes
+    (cull_downscale=2): the forward permute of K=4 f16-packed planes and
+    the return permute of f16-packed costs bit-equal at consumed
+    coordinates, the K=4 sparse-window cost within 1e-3 at covered
+    pixels."""
+    from gipuma_tpu_torch.ops import rect_cost as trc
+    job, _ = _ring(cuda_device, cull_downscale=2)
+    sc, p = job.prep.cull, job.params
+    assert sc is not None
+    sp = p.replace(box_hsize=p.cull_box, box_vsize=p.cull_box,
+                   window_increment=p.cull_increment)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    s = sc.fwd_c1.shape[-2]
+    hr, wr = sc.ref_rect.shape[-2:]
+    K = 4
+    for v in range(sc.num_views):
+        m = torch.randn((K, 3, s, s), generator=g, device=cuda_device)
+        words = trc._pack_m_tri(m).contiguous()
+        m2 = sc.fwd2_ok[v]
+        want = tpm.permute2d_plain(words, sc.fwd_c1[v], sc.fwd_r[v])
+        got = tpm.permute2d_cuda(words, sc.fwd_c1[v], sc.fwd_r[v], m2)
+        on = m2.bool().repeat_interleave(8, 0).repeat_interleave(
+            128, 1)[:wr, :hr].t()
+        assert torch.equal(got[:, on], want[:, on])
+        mr = trc._unpack_m_tri(want, K)
+        abc = trc._apply_L(sc.L[v], mr).contiguous()
+        db = sc.disp_bounds[v].contiguous()
+        want_c = tsf.fused_sdg_cost_batch_plain(sc.ref_rect[v],
+                                                sc.src_rect[v], abc, sp,
+                                                db[0], db[1])
+        got_c = tsf.fused_sdg_cost_batch_cuda(sc.ref_rect[v], sc.src_rect[v],
+                                              abc, sp, db, sc.hw_valid[v],
+                                              sc.tile_ok[v])
+        hv, wv = (int(a) for a in sc.hw_valid[v].tolist())
+        cov = sc.tile_ok[v].bool().repeat_interleave(8, 0).repeat_interleave(
+            128, 1)[:hr, :wr].clone()
+        cov[(hv + 7) // 8 * 8:] = False
+        cov[:, (wv + 127) // 128 * 128:] = False
+        assert cov.any()
+        assert float((got_c - want_c).abs()[:, cov].max()) <= 1e-3
+        cw = trc._pack_f16_pairs(want_c).contiguous()
+        r2 = sc.ret2_ok[v]
+        want_r = tpm.permute2d_plain(cw, sc.ret_c1[v], sc.ret_r[v])
+        got_r = tpm.permute2d_cuda(cw, sc.ret_c1[v], sc.ret_r[v], r2)
+        on = r2.bool().repeat_interleave(8, 0).repeat_interleave(
+            128, 1)[:s, :s].t()
+        assert torch.equal(got_r[:, on], want_r[:, on])
+
+
+@pytest.mark.parametrize("path", ["rect", "exact", "cull_downscale"])
+def test_scan_graph_matches_host_loop(cuda_device, monkeypatch, path):
+    """level_dispatch="scan" on the card (iteration 1 eager, the others
+    replays of one captured iteration) against the host loop from the same
+    seed: planes and costs bit-equal, the same kernel launches counted,
+    the generator left at the same offset, and no host sync inside the
+    capture (sync debug mode "error")."""
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.models import patchmatch as tpmm
+    from gipuma_tpu_torch.ops.cost import multiview_cost
+    from gipuma_tpu_torch.ops.rect_cost import rect_multiview_cost
+    kw = {"exact": dict(cost_path="exact"),
+          "cull_downscale": dict(cull_downscale=2)}.get(path, {})
+    job, _ = _ring(cuda_device, h=64, w=96, **kw)
+    cost_fn = multiview_cost if path == "exact" else rect_multiview_cost
+    monkeypatch.setattr(tpmm, "CAPTURE_SYNC_DEBUG_MODE", "error")
+    out = {}
+    for mode in ("host", "scan"):
+        gen = tpmm.make_generator(5, cuda_device)
+        kernels.reset_counts()
+        tpmm.SCAN_LOG.clear()
+        with torch.no_grad():
+            st = tpmm.run_patchmatch(job.prep, job.params.replace(
+                level_dispatch=mode), gen, cost_fn)
+        torch.cuda.synchronize()
+        out[mode] = (st, dict(kernels.counts), gen.get_offset(),
+                     list(tpmm.SCAN_LOG))
+    (h_st, h_n, h_off, _), (s_st, s_n, s_off, log) = out["host"], out["scan"]
+    assert len(log) == 1 and log[0]["replays"] == job.params.iterations - 1
+    assert torch.equal(s_st.planes.view(torch.int32),
+                       h_st.planes.view(torch.int32))
+    assert torch.equal(s_st.cost.view(torch.int32),
+                       h_st.cost.view(torch.int32))
+    assert s_n == h_n and any(v > 0 for v in s_n.values())
+    assert s_off == h_off
+
+
+def test_graph_replays_draw_new_uniforms(cuda_device):
+    """A torch.Generator registered with a CUDA graph: every replay draws
+    the next uniforms of the generator's stream (the ones an eager call
+    would draw), not the captured ones again."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    ref = torch.Generator(device=cuda_device).manual_seed(9)
+    out = torch.empty(1000, device=cuda_device)
+    torch.rand(1000, generator=gen, device=cuda_device)     # warm-up draw
+    torch.rand(1000, generator=ref, device=cuda_device)
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(gen)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        g.capture_begin()
+        out.copy_(torch.rand(1000, generator=gen, device=cuda_device))
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(s)
+    draws = []
+    for _ in range(3):
+        g.replay()
+        draws.append(out.clone())
+    for d in draws:
+        assert torch.equal(d, torch.rand(1000, generator=ref,
+                                         device=cuda_device))
+    assert not torch.equal(draws[0], draws[1])

@@ -8,10 +8,11 @@ output writers against the JAX package.
 * write_outputs writes the seven artifacts; .dmb/.ply bytes equal the JAX
   writers' for the same result, and the PNGs decode to the same pixels;
 * compute_depthmap through the census and the unfused rect costs passes
-  the same gate; every rect layout passes check_supported;
-* off-slice settings raise NotImplementedError (shape quantization and
-  monolithic propagation no longer do) and the entry points do not fall
-  back to the CPU silently."""
+  the same gate; prepare_job builds every rect layout's scene;
+* the settings that raised NotImplementedError before the port ran them
+  (cull_downscale screening, level_dispatch="scan", shape quantization,
+  monolithic propagation) prepare and run, and the entry points do not
+  fall back to the CPU silently."""
 import dataclasses
 import os
 import subprocess
@@ -139,6 +140,23 @@ def test_build_rect_scene_matches_numpy_warp(monkeypatch):
                                    rtol=1e-5, atol=1e-6, err_msg=f)
 
 
+def _prepared(**kw):
+    """prepare_job with the /verify settings (one iteration) changed by
+    `kw`, on a small ring (48x64, 4 cameras) on the CPU; returns the job
+    and its scenes (a pyramid's coarsest first)."""
+    images, rig, _, _ = plane_scene(num_cams=4, h=48, w=64, focal=90.0,
+                                    plane_depth=5.0, slant=(0.2, -0.1))
+    Ps = make_ring_P(4, 48, 64, 90.0, target_depth=5.0)
+    job = tpipe.prepare_job(images, Ps,
+                            _verify_params().replace(iterations=1, **kw),
+                            device="cpu")
+    scenes = [f.result()[0] for f in job.prep] if job.pyramid else [job.prep]
+    return job, scenes
+
+
+# The settings that raised NotImplementedError until the port ran them
+# (the cull_downscale screening scene, the whole-level scan); the test
+# keeps its name and now holds that they prepare and run.
 @pytest.mark.parametrize("kw", [dict(cull_downscale=2),
                                 dict(cull_downscale=3, pyramid_levels=3),
                                 dict(cull_downscale=4,
@@ -146,9 +164,25 @@ def test_build_rect_scene_matches_numpy_warp(monkeypatch):
                                 dict(level_dispatch="scan", pyramid_levels=3),
                                 dict(level_dispatch="scan")])
 def test_off_slice_settings_raise(kw):
-    p = _verify_params().replace(**kw)
-    with pytest.raises(NotImplementedError):
-        tpipe.check_supported(p)
+    job, scenes = _prepared(**kw)
+    if kw.get("cull_downscale", 1) > 1:
+        # The nested screening scene on every level that screens: one
+        # level, or the warm-started ones of a pyramid (the coarsest
+        # starts from random planes and screens at full resolution).
+        warm = scenes[1:] if job.pyramid else scenes
+        assert all(sc.cull is not None for sc in warm)
+        assert all(sc.cull.ref_rect.shape[-2] < sc.ref_rect.shape[-2]
+                   for sc in warm)
+        if job.pyramid:
+            assert scenes[0].cull is None
+        return
+    # The scan runs the host loop's schedule: on the CPU, the same bits.
+    got = tpipe.run_prepared_job(job)
+    host = _prepared(**dict(kw, level_dispatch="host"))[0]
+    want = tpipe.run_prepared_job(host)
+    np.testing.assert_array_equal(got.depth, want.depth)
+    np.testing.assert_array_equal(got.cost, want.cost)
+    assert np.isfinite(got.depth).all()
 
 
 @pytest.mark.parametrize("kw", [dict(rect_quantize_shapes=True),
@@ -157,7 +191,15 @@ def test_off_slice_settings_raise(kw):
                                      propagation_variant="monolithic",
                                      pyramid_levels=3)])
 def test_slice6_settings_supported(kw):
-    tpipe.check_supported(_verify_params().replace(**kw))
+    job, scenes = _prepared(**kw)
+    assert len(scenes) == kw.get("pyramid_levels", 1)
+    for sc in scenes:
+        assert sc.num_views >= 1 and sc.ref_rect.shape[-1] % 128 == 0
+        if kw.get("rect_quantize_shapes"):
+            # Quantized buckets: rows and columns rounded up to the quanta.
+            assert sc.ref_rect.shape[-2] % job.params.rect_quantum_rows == 0
+    assert job.params.propagation_variant == kw.get(
+        "propagation_variant", _verify_params().propagation_variant)
 
 
 # Every rect layout and cost: census, the unfused window_grads cost, full
@@ -171,7 +213,16 @@ SLICE3 = {"census": dict(algorithm=MatchingAlgorithm.CENSUS),
 
 @pytest.mark.parametrize("name", list(SLICE3))
 def test_rect_layouts_supported(name):
-    tpipe.check_supported(_verify_params().replace(**SLICE3[name]))
+    """prepare_job builds each layout's rect scene: packed image words
+    ([C] int32, window_grads), [img, gy] words ([2C] int32, grad_fwd),
+    [img, gx, gy] words ([3C] int32, full) or channels ([3C] float32,
+    f32 taps)."""
+    job, (sc,) = _prepared(**SLICE3[name])
+    C = sc.ref_rect.shape[1] // 3
+    want = {"census": (C, torch.int32), "unfused": (C, torch.int32),
+            "full": (3 * C, torch.int32), "gfwd": (2 * C, torch.int32),
+            "f32": (3 * C, torch.float32)}[name]
+    assert (sc.src_rect.shape[1], sc.src_rect.dtype) == want
 
 
 @pytest.mark.parametrize("name,iters", [("census", 4), ("unfused", 3)])

@@ -12,7 +12,8 @@ depth error < 5e-3):
 * a 2-level rect pyramid with the bench's fine-level trims (48x64);
 * compute_depthmap with the default cost path (exact);
 * a rig that cannot be rectified falls back to the exact path.
-And the settings this slice made runnable no longer raise."""
+And prepare_job builds the scenes of the settings slice 2 made
+runnable."""
 import dataclasses
 
 import jax
@@ -181,8 +182,22 @@ def test_unrectifiable_rig_falls_back_to_exact(capsys, levels):
                                 dict(cost_path="exact",
                                      algorithm=MatchingAlgorithm.CENSUS)])
 def test_slice_settings_supported(kw):
-    p = AlgorithmParams(cost_path="rect").replace(**kw)
-    tpipe.check_supported(p)
+    """prepare_job on a small ring (48x64, 4 cameras, CPU) builds each
+    level's scene on the cost path the settings ask for."""
+    images, rig, _, _ = plane_scene(num_cams=4, h=48, w=64, focal=90.0,
+                                    plane_depth=5.0, slant=(0.2, -0.1))
+    Ps = make_ring_P(4, 48, 64, 90.0, target_depth=5.0)
+    p = AlgorithmParams(cost_path="rect", box_hsize=9, box_vsize=9,
+                        iterations=1, depth_min=3.0, depth_max=8.0,
+                        min_angle=0.01, max_angle=60.0).replace(**kw)
+    job = tpipe.prepare_job(images, Ps, p, device="cpu")
+    scenes = [f.result()[0] for f in job.prep] if job.pyramid else [job.prep]
+    assert len(scenes) == p.pyramid_levels
+    for sc in scenes:
+        if p.cost_path == "exact":
+            assert isinstance(sc, ScenePack) and sc.src is not None
+        else:
+            assert not isinstance(sc, ScenePack) and sc.num_views == 3
 
 
 def test_warm_start_entry_point(exact_scene):
