@@ -100,6 +100,31 @@ Phases, in order (any failure exits non-zero before the last line):
    one `batch` JSON line per run: per-view runtime_s and error, the
    run's wall, fusion seconds on the card, points, peak allocated
    memory, kernel launches;
+4g. (i) the parallel layer (gipuma_tpu_torch/parallel, fusion/sharded.py)
+   on several ranks spawned by parallel/launch.py: with fewer cards than
+   ranks all ranks share the card over gloo (NCCL refuses a device twice;
+   printed), with a card per rank NCCL.  Every sub-run is held to a
+   launch count > 0 on every rank for each kernel it runs, finite depth
+   and median relative depth error < 5e-3 on [16:-16, 16:-16]:
+   (i1) view-sharded rect on the bench scene (middlebury widths, 8
+   iterations, no two-stage cull: the sharded path runs none), 3 ranks of
+   2 views, against the port's single-process run from the same seed:
+   cost within 1e-5, planes within 1e-4 (tests/test_rect_sharding.py);
+   (i2) view-sharded exact, 2 ranks, the same check; (i3) tile x view
+   rect 2 x 2 (scripts/multichip_realistic.py's layout on 4 ranks), with
+   the band-seam rows' median error < 1e-2 (tests/test_tiled_rect.py:51);
+   (i4) tiled exact, propagation only, 2 bands against one process
+   within 1e-6 (tests/test_tiled.py); (i5) the CLI's --distributed with
+   scripts/dino.sh's flags over the batch phase's folder on 2 ranks: each
+   view's disp.dmb against run (a)'s (differences reported), fused.ply
+   with run (a)'s point count and points within 1e-5, and the sharded
+   fusion of run (a)'s maps in the same world keeping the card fusion's
+   pixels in its order, its seconds beside run (a)'s fusion's.  One
+   `dist` JSON line per sub-run: walls, collective calls and bytes (per
+   iteration), host copies, peak memory, launches; and from a profiled
+   repeat of each sub-run but (i5)'s CLI, per-rank device seconds and the
+   collectives' seconds (NCCL's kernels on the card, gloo's spans on the
+   host);
 5. timings, one JSON line each: each path's warm run wall time (after a
    full garbage collection outside the timed span; with the collector's
    seconds inside it, the caching allocator's new device allocations and
@@ -813,220 +838,538 @@ def plane_dist(np, pts, plane) -> float:
                  / 5.0)
 
 
-def batch_phase(torch, np, device, card):
-    """The scripts' path on the card (scripts/dino.sh over a folder of
+# Batch runs (a) and (b): the CLI's extra flags and the kernels each must
+# launch.
+BATCH_RUNS = {"a": ([], ("bilinear_sample",)),
+              "b": (["--cost_path", "rect", "--pyramid_levels", "3",
+                     "--pyramid_fine_iterations", "1"],
+                    ("permute2d", "sdg_fused_cost"))}
+
+
+def batch_folder(np, td: str) -> dict:
+    """The batch phase's folder of views under `td`: its paths, the views'
+    names and cameras, the scene's plane and the fusion's params."""
+    from gipuma_tpu_torch.config import FusionParams
+    from gipuma_tpu_torch.io.calib import load_projection_matrices
+    stamp("batch: write the folder")
+    root = os.path.join(td, "views")
+    os.makedirs(root)
+    names, plane = write_batch_folder(np, root)
+    par = os.path.join(root, "par.txt")
+    return dict(td=td, root=root, par=par, names=names, plane=plane,
+                gt_tpl=os.path.join(root, "gt", "depth_{idx:03d}.dmb"),
+                Ps=load_projection_matrices(names, krt_file=par),
+                fp=FusionParams(disp_thresh=0.1, normal_thresh=30.0,
+                                num_consistent=3))
+
+
+def batch_cli_run(torch, np, device, card, folder: dict, label: str) -> dict:
+    """Batch run `label` ((a) or (b)): cli.main with dino.sh's flags over
+    the folder, held as the module docstring says; prints its `batch`
+    line and returns its kernel launches.  Run (a) also fuses its maps on
+    the card and the CPU and keeps them in `folder` (phase (i5)'s
+    reference: run_dir, depths, normals, ids, ids_card, fusion_s_card,
+    wall_s)."""
+    from gipuma_tpu_torch import cli, kernels
+    from gipuma_tpu_torch.fusion.fuse import fuse_depthmaps
+    from gipuma_tpu_torch.io.dmb import read_dmb
+    from gipuma_tpu_torch.io.ply import read_ply
+    extra, need = BATCH_RUNS[label]
+    root, names, Ps, fp = (folder["root"], folder["names"], folder["Ps"],
+                           folder["fp"])
+    interior = (slice(16, -16), slice(16, -16))
+    stamp(f"batch ({label}): cli.main, dino.sh's flags {extra}")
+    res_root = os.path.join(folder["td"], f"out_{label}")
+    argv = (["-images_folder", root, "-krt_file", folder["par"],
+             "-output_folder", res_root, "-gt", folder["gt_tpl"]]
+            + DINO_FLAGS + extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.counts)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"batch ({label}): cli.main returned {rc}")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        fail(f"batch ({label}): kernels never launched: {missing}")
+    (run_dir,) = [os.path.join(res_root, d) for d in os.listdir(res_root)]
+    meds, rts, depths, normals = [], [], [], []
+    for i, name in enumerate(names):
+        vdir = os.path.join(run_dir, os.path.splitext(name)[0])
+        depth = read_dmb(os.path.join(vdir, "disp.dmb"))
+        gt_path = os.path.join(root, "gt", f"depth_{i:03d}.dmb")
+        gt_i = read_dmb(gt_path)
+        if not (depth.shape == gt_i.shape and np.isfinite(depth).all()):
+            fail(f"batch ({label}): {name}: depth not finite or of the "
+                 "wrong shape")
+        med = float(np.median(np.abs(depth[interior] - gt_i[interior])
+                              / gt_i[interior]))
+        with open(os.path.join(vdir, "results.txt")) as f:
+            text = f.read()
+        head, _ = json.JSONDecoder().raw_decode(text)
+        if (f"gt_file {gt_path}\n" not in text
+                or "\nerror_rate_tol" not in text):
+            fail(f"batch ({label}): {name}: results.txt has no GT "
+                 "evaluation lines")
+        if not med < 5e-3:
+            fail(f"batch ({label}): {name}: median rel depth err {med} "
+                 "(gate 5e-3)")
+        meds.append(med)
+        rts.append(head["runtime_s"])
+        depths.append(depth)
+        normals.append(read_dmb(os.path.join(vdir, "normals.dmb")))
+    pts = read_ply(os.path.join(run_dir, "fused.ply"))[0]
+    n_min = 0.25 * BATCH_H * BATCH_W
+    pdist = plane_dist(np, pts, folder["plane"])
+    if not (len(pts) >= n_min and pdist < 5e-3):
+        fail(f"batch ({label}): fused.ply {len(pts)} points (need >= "
+             f"{n_min}), median plane distance / depth {pdist}")
+    depths, normals = np.stack(depths), np.stack(normals)
+    # Colour = the pixel's global index: the fused colours name the kept
+    # pixels, in order.
+    ids = np.arange(depths.size).reshape(depths.shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts_g, _, ids_g = fuse_depthmaps(depths, normals, Ps, fp, colors=ids,
+                                     device=device)
+    fuse_s = time.perf_counter() - t0
+    line = {"metric": "batch", "run": label, "card": card,
+            "views": len(names), "runtime_s": rts, "median_rel_err": meds,
+            "wall_s": wall, "fusion_s_card": fuse_s,
+            "points_fused_ply": len(pts), "points_card": len(pts_g),
+            "plane_dist_fused_ply": pdist, "peak_allocated_GB": peak / 1e9,
+            "launches": launches}
+    if label == "a":
+        folder.update(run_dir=run_dir, depths=depths, normals=normals,
+                      ids=ids, ids_card=ids_g, fusion_s_card=fuse_s,
+                      wall_s=wall)
+        t0 = time.perf_counter()
+        pts_c, _, ids_c = fuse_depthmaps(depths, normals, Ps, fp,
+                                         colors=ids, device="cpu")
+        line["fusion_s_cpu"] = time.perf_counter() - t0
+        line["points_cpu"] = len(pts_c)
+        d_g = plane_dist(np, pts_g, folder["plane"])
+        d_c = plane_dist(np, pts_c, folder["plane"])
+        line["plane_dist_card"], line["plane_dist_cpu"] = d_g, d_c
+        same = ids_g.shape == ids_c.shape and bool((ids_g == ids_c).all())
+        line["keep_masks_equal"] = same
+        if not same:
+            fail(f"batch (a): card fusion kept {len(pts_g)} pixels (plane "
+                 f"distance {d_g}), the CPU's {len(pts_c)} ({d_c}): keep "
+                 "masks or their order differ")
+    log(json.dumps(line))
+    return launches
+
+
+def batch_phase(torch, np, device, card, folder: dict):
+    """The scripts' path on the card (scripts/dino.sh over the folder of
     views): runs (a) and (b) through gipuma_tpu_torch.cli.main, (c)
     through run_batch with rect_quantize_shapes; each held as the module
     docstring says.  Returns {run: kernel launches}."""
-    from gipuma_tpu_torch import cli, kernels
-    from gipuma_tpu_torch.config import MAXCOST, PRESETS, FusionParams
-    from gipuma_tpu_torch.fusion.fuse import fuse_depthmaps
-    from gipuma_tpu_torch.io.calib import load_projection_matrices
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.config import MAXCOST, PRESETS
     from gipuma_tpu_torch.io.dmb import read_dmb
-    from gipuma_tpu_torch.io.ply import read_ply
     from gipuma_tpu_torch.models import rect_scene as rs
     from gipuma_tpu_torch.models.patchmatch import init_state, make_generator
     from gipuma_tpu_torch.ops import checkerboard as cb
     from gipuma_tpu_torch.ops.rect_cost import rect_multiview_cost_batch
     from gipuma_tpu_torch.pipeline import prepare_job, run_batch
 
-    stamp("batch: write the folder")
-    out = {}
+    out = {label: batch_cli_run(torch, np, device, card, folder, label)
+           for label in BATCH_RUNS}
     interior = (slice(16, -16), slice(16, -16))
-    with tempfile.TemporaryDirectory() as td:
-        root = os.path.join(td, "views")
-        os.makedirs(root)
-        names, plane = write_batch_folder(np, root)
-        par = os.path.join(root, "par.txt")
-        gt_tpl = os.path.join(root, "gt", "depth_{idx:03d}.dmb")
-        Ps = load_projection_matrices(names, krt_file=par)
-        fp = FusionParams(disp_thresh=0.1, normal_thresh=30.0,
-                          num_consistent=3)
-        runs = {"a": ([], ("bilinear_sample",)),
-                "b": (["--cost_path", "rect", "--pyramid_levels", "3",
-                       "--pyramid_fine_iterations", "1"],
-                      ("permute2d", "sdg_fused_cost"))}
-        for label, (extra, need) in runs.items():
-            stamp(f"batch ({label}): cli.main, dino.sh's flags {extra}")
-            res_root = os.path.join(td, f"out_{label}")
-            argv = (["-images_folder", root, "-krt_file", par,
-                     "-output_folder", res_root, "-gt", gt_tpl]
-                    + DINO_FLAGS + extra)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_counts()
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            wall = time.perf_counter() - t0
-            launches = dict(kernels.counts)
-            peak = torch.cuda.max_memory_allocated()
-            if rc != 0:
-                fail(f"batch ({label}): cli.main returned {rc}")
-            missing = [k for k in need if launches[k] <= 0]
-            if missing:
-                fail(f"batch ({label}): kernels never launched: {missing}")
-            (run_dir,) = [os.path.join(res_root, d)
-                          for d in os.listdir(res_root)]
-            meds, rts, depths, normals = [], [], [], []
-            for i, name in enumerate(names):
-                vdir = os.path.join(run_dir, os.path.splitext(name)[0])
-                depth = read_dmb(os.path.join(vdir, "disp.dmb"))
-                gt_i = read_dmb(os.path.join(root, "gt",
-                                             f"depth_{i:03d}.dmb"))
-                if not (depth.shape == gt_i.shape
-                        and np.isfinite(depth).all()):
-                    fail(f"batch ({label}): {name}: depth not finite or of "
-                         "the wrong shape")
-                med = float(np.median(np.abs(depth[interior] - gt_i[interior])
-                                      / gt_i[interior]))
-                with open(os.path.join(vdir, "results.txt")) as f:
-                    text = f.read()
-                head, _ = json.JSONDecoder().raw_decode(text)
-                gt_path = os.path.join(root, "gt", f"depth_{i:03d}.dmb")
-                if (f"gt_file {gt_path}\n" not in text
-                        or "\nerror_rate_tol" not in text):
-                    fail(f"batch ({label}): {name}: results.txt has no GT "
-                         "evaluation lines")
-                if not med < 5e-3:
-                    fail(f"batch ({label}): {name}: median rel depth err "
-                         f"{med} (gate 5e-3)")
-                meds.append(med)
-                rts.append(head["runtime_s"])
-                depths.append(depth)
-                normals.append(read_dmb(os.path.join(vdir, "normals.dmb")))
-            pts = read_ply(os.path.join(run_dir, "fused.ply"))[0]
-            n_min = 0.25 * BATCH_H * BATCH_W
-            pdist = plane_dist(np, pts, plane)
-            if not (len(pts) >= n_min and pdist < 5e-3):
-                fail(f"batch ({label}): fused.ply {len(pts)} points (need "
-                     f">= {n_min}), median plane distance / depth {pdist}")
-            depths, normals = np.stack(depths), np.stack(normals)
-            # Colour = the pixel's global index: the fused colours name the
-            # kept pixels, in order.
-            ids = np.arange(depths.size).reshape(depths.shape)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pts_g, _, ids_g = fuse_depthmaps(depths, normals, Ps, fp,
-                                             colors=ids, device=device)
-            fuse_s = time.perf_counter() - t0
-            line = {"metric": "batch", "run": label, "card": card,
-                    "views": len(names), "runtime_s": rts,
+    td, root, par, names, Ps = (folder["td"], folder["root"], folder["par"],
+                                folder["names"], folder["Ps"])
+
+    # (c) rect_quantize_shapes through run_batch: the ledger holds the
+    # three views at one bucket; each scene's info is recorded.
+    stamp(f"batch (c): run_batch, rect_quantize_shapes, refs "
+          f"{QUANT_REFS}")
+    qp = PRESETS["middlebury"].replace(
+        box_hsize=11, box_vsize=11, iterations=8, n_best=3,
+        depth_min=3.0, depth_max=8.0, min_angle=0.01, max_angle=60.0,
+        cost_path="rect", rect_quantize_shapes=True)
+    infos = []
+    build = rs.build_rect_scene
+
+    def recording(*a, **k):
+        scene, info = build(*a, **k)
+        infos.append(info)
+        return scene, info
+    rs.build_rect_scene = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res_c = run_batch([os.path.join(root, n) for n in names], qp,
+                          os.path.join(td, "out_c"), krt_file=par,
+                          ref_indices=QUANT_REFS, device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        rs.build_rect_scene = build
+    launches = dict(kernels.counts)
+    buckets = [i["shape_bucket"] for i in infos]
+    shapes = [(max(p["rect_shape"][0] for p in i["pairs"]
+                   if "rect_shape" in p),
+               max(p["rect_shape"][1] for p in i["pairs"]
+                   if "rect_shape" in p)) for i in infos]
+    meds = []
+    for ref, r in zip(QUANT_REFS, res_c):
+        gt_i = read_dmb(os.path.join(root, "gt", f"depth_{ref:03d}.dmb"))
+        meds.append(float(np.median(
+            np.abs(r.depth[interior] - gt_i[interior]) / gt_i[interior])))
+    log(json.dumps({"metric": "batch", "run": "c", "card": card,
+                    "views": list(QUANT_REFS),
+                    "runtime_s": [r.runtime_s for r in res_c],
                     "median_rel_err": meds, "wall_s": wall,
-                    "fusion_s_card": fuse_s, "points_fused_ply": len(pts),
-                    "points_card": len(pts_g),
-                    "plane_dist_fused_ply": pdist,
-                    "peak_allocated_GB": peak / 1e9, "launches": launches}
-            if label == "a":
-                t0 = time.perf_counter()
-                pts_c, _, ids_c = fuse_depthmaps(depths, normals, Ps, fp,
-                                                 colors=ids, device="cpu")
-                line["fusion_s_cpu"] = time.perf_counter() - t0
-                line["points_cpu"] = len(pts_c)
-                d_g, d_c = plane_dist(np, pts_g, plane), plane_dist(
-                    np, pts_c, plane)
-                line["plane_dist_card"], line["plane_dist_cpu"] = d_g, d_c
-                same = (ids_g.shape == ids_c.shape
-                        and bool((ids_g == ids_c).all()))
-                line["keep_masks_equal"] = same
-                if not same:
-                    fail(f"batch (a): card fusion kept {len(pts_g)} pixels "
-                         f"(plane distance {d_g}), the CPU's {len(pts_c)} "
-                         f"({d_c}): keep masks or their order differ")
-            log(json.dumps(line))
-            out[label] = launches
+                    "rect_shapes": shapes, "shape_buckets": buckets,
+                    "peak_allocated_GB":
+                        torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": launches}))
+    if len(buckets) != len(QUANT_REFS) or any(b != buckets[0]
+                                              for b in buckets):
+        fail(f"batch (c): shape buckets differ across views: {buckets}")
+    if len(set(shapes)) < 2:
+        fail(f"batch (c): the views' rect shapes are all {shapes[0]}")
+    if not all(m < 5e-3 for m in meds):
+        fail(f"batch (c): median rel depth err {meds} (gate 5e-3)")
+    out["c"] = launches
 
-        # (c) rect_quantize_shapes through run_batch: the ledger holds the
-        # three views at one bucket; each scene's info is recorded.
-        stamp(f"batch (c): run_batch, rect_quantize_shapes, refs "
-              f"{QUANT_REFS}")
-        qp = PRESETS["middlebury"].replace(
-            box_hsize=11, box_vsize=11, iterations=8, n_best=3,
-            depth_min=3.0, depth_max=8.0, min_angle=0.01, max_angle=60.0,
-            cost_path="rect", rect_quantize_shapes=True)
-        infos = []
-        build = rs.build_rect_scene
+    # The costs of one candidate set on the quantized and unquantized
+    # scene of one view, on the card: bit-equal at every real view.
+    from gipuma_tpu_torch.io.images import load_image
+    imgs = [load_image(os.path.join(root, n)) for n in names]
+    ref = QUANT_REFS[1]
+    jq = prepare_job(imgs, Ps, qp, names, ref_index=ref, device=device)
+    ju = prepare_job(imgs, Ps, qp.replace(rect_quantize_shapes=False),
+                     names, ref_index=ref, device=device)
 
-        def recording(*a, **k):
-            scene, info = build(*a, **k)
-            infos.append(info)
-            return scene, info
-        rs.build_rect_scene = recording
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_counts()
-            t0 = time.perf_counter()
-            res_c = run_batch([os.path.join(root, n) for n in names], qp,
-                              os.path.join(td, "out_c"), krt_file=par,
-                              ref_indices=QUANT_REFS, device=device)
-            wall = time.perf_counter() - t0
-        finally:
-            rs.build_rect_scene = build
-        launches = dict(kernels.counts)
-        buckets = [i["shape_bucket"] for i in infos]
-        shapes = [(max(p["rect_shape"][0] for p in i["pairs"]
-                       if "rect_shape" in p),
-                   max(p["rect_shape"][1] for p in i["pairs"]
-                       if "rect_shape" in p)) for i in infos]
-        meds = []
-        for ref, r in zip(QUANT_REFS, res_c):
-            gt_i = read_dmb(os.path.join(root, "gt", f"depth_{ref:03d}.dmb"))
-            meds.append(float(np.median(
-                np.abs(r.depth[interior] - gt_i[interior]) / gt_i[interior])))
-        log(json.dumps({"metric": "batch", "run": "c", "card": card,
-                        "views": list(QUANT_REFS),
-                        "runtime_s": [r.runtime_s for r in res_c],
-                        "median_rel_err": meds, "wall_s": wall,
-                        "rect_shapes": shapes, "shape_buckets": buckets,
-                        "peak_allocated_GB":
-                            torch.cuda.max_memory_allocated() / 1e9,
-                        "launches": launches}))
-        if len(buckets) != len(QUANT_REFS) or any(b != buckets[0]
-                                                  for b in buckets):
-            fail(f"batch (c): shape buckets differ across views: {buckets}")
-        if len(set(shapes)) < 2:
-            fail(f"batch (c): the views' rect shapes are all {shapes[0]}")
-        if not all(m < 5e-3 for m in meds):
-            fail(f"batch (c): median rel depth err {meds} (gate 5e-3)")
-        out["c"] = launches
+    def zero_cost(sc, p, par, n, d):
+        return torch.zeros(n.shape[:2], device=device)
 
-        # The costs of one candidate set on the quantized and unquantized
-        # scene of one view, on the card: bit-equal at every real view.
-        from gipuma_tpu_torch.io.images import load_image
-        imgs = [load_image(os.path.join(root, n)) for n in names]
-        ref = QUANT_REFS[1]
-        jq = prepare_job(imgs, Ps, qp, names, ref_index=ref, device=device)
-        ju = prepare_job(imgs, Ps, qp.replace(rect_quantize_shapes=False),
-                         names, ref_index=ref, device=device)
-
-        def zero_cost(sc, p, par, n, d):
-            return torch.zeros(n.shape[:2], device=device)
-
-        with torch.no_grad():
-            st = init_state(ju.prep, ju.params, make_generator(3, device),
-                            zero_cost)
-            eo = cb.PaddedEO.build(st.planes, 1, 3)
-            cand = torch.stack([eo.shifted(dy, dx, 0) for dy, dx in
-                                ((-1, 0), (1, 0), (0, -1), (0, 1))])
-            kernels.reset_counts()
-            c_u = rect_multiview_cost_batch(ju.prep, ju.params, 0,
-                                            cand[..., :3].contiguous(),
-                                            cand[..., 3].contiguous())
-            c_q = rect_multiview_cost_batch(jq.prep, jq.params, 0,
-                                            cand[..., :3].contiguous(),
-                                            cand[..., 3].contiguous())
-        same = bool(torch.equal(c_u.view(torch.int32),
-                                c_q.view(torch.int32)))
-        log(f"  quantized scene {tuple(jq.prep.ref_rect.shape)} vs "
-            f"{tuple(ju.prep.ref_rect.shape)}: K=4 costs "
-            f"{'bit-equal' if same else 'DIFFER'} "
-            f"({int((c_u < MAXCOST).sum())} live), launches "
-            f"{dict(kernels.counts)}")
-        if not same:
-            fail("batch (c): quantized and unquantized costs differ")
-        del jq, ju, st, eo, cand, c_u, c_q
+    with torch.no_grad():
+        st = init_state(ju.prep, ju.params, make_generator(3, device),
+                        zero_cost)
+        eo = cb.PaddedEO.build(st.planes, 1, 3)
+        cand = torch.stack([eo.shifted(dy, dx, 0) for dy, dx in
+                            ((-1, 0), (1, 0), (0, -1), (0, 1))])
+        kernels.reset_counts()
+        c_u = rect_multiview_cost_batch(ju.prep, ju.params, 0,
+                                        cand[..., :3].contiguous(),
+                                        cand[..., 3].contiguous())
+        c_q = rect_multiview_cost_batch(jq.prep, jq.params, 0,
+                                        cand[..., :3].contiguous(),
+                                        cand[..., 3].contiguous())
+    same = bool(torch.equal(c_u.view(torch.int32),
+                            c_q.view(torch.int32)))
+    log(f"  quantized scene {tuple(jq.prep.ref_rect.shape)} vs "
+        f"{tuple(ju.prep.ref_rect.shape)}: K=4 costs "
+        f"{'bit-equal' if same else 'DIFFER'} "
+        f"({int((c_u < MAXCOST).sum())} live), launches "
+        f"{dict(kernels.counts)}")
+    if not same:
+        fail("batch (c): quantized and unquantized costs differ")
+    del jq, ju, st, eo, cand, c_u, c_q
     torch.cuda.empty_cache()
     return out
+
+
+# ---- phase (i): the parallel layer, several ranks on the card ----------
+
+# Kernels each sub-run of phase (i) must launch on every rank.
+DIST_KERNELS = {"i1": ("permute2d", "sdg_fused_cost"),
+                "i2": ("bilinear_sample",),
+                "i3": ("permute2d", "sdg_fused_cost"),
+                "i4": ("bilinear_sample",),
+                "i5": ("bilinear_sample",)}
+# Band-boundary rows of the 2-tile runs at 480 rows: 8 rows each side of
+# the stitch.
+SEAM_ROWS = slice(232, 248)
+
+
+def dist_backend(torch, world: int) -> str:
+    """NCCL with a card per rank; gloo when the ranks share cards (NCCL
+    refuses a device twice)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def twice(task: dict) -> list:
+    """`task`, then its repeat under the profiler: the first gives the
+    walls, the second the device and collective seconds."""
+    return [task, dict(task, profile=True)]
+
+
+def dist_spawn(torch, world: int, tasks: list, label: str):
+    """Run `tasks` on `world` ranks (parallel/launch.py) on the card;
+    returns (records by rank, the spawn's wall seconds, the backend)."""
+    from gipuma_tpu_torch.parallel import launch
+    backend = dist_backend(torch, world)
+    stamp(f"(i) {label}: {world} ranks, backend {backend}, "
+          f"{torch.cuda.device_count()} card(s) visible")
+    t0 = time.perf_counter()
+    try:
+        recs = launch.spawn(launch.run_tasks, world, args=(tasks,),
+                            device="cuda", backend=backend, timeout=300)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"(i) {label}: {e}")
+    return recs, time.perf_counter() - t0, backend
+
+
+def dist_check(recs, t: int, label: str):
+    """Every rank launched every kernel of the sub-run."""
+    for rank, r in enumerate(recs):
+        missing = [k for k in DIST_KERNELS[label] if r[t]["counts"][k] <= 0]
+        if missing:
+            fail(f"(i) {label}: rank {rank} never launched {missing}")
+
+
+def dist_line(torch, card, label, backend, recs, t, spawn_s, iterations,
+              extra, profiled=True):
+    """The `dist` JSON line of sub-run `label`: record t of `recs` and,
+    with `profiled`, its profiled repeat t + 1 (device seconds, and the
+    collectives' seconds: NCCL's kernels on the card, gloo's spans on the
+    host)."""
+    rr = [r[t] for r in recs]
+    col = [r["collectives"] for r in rr]
+    prof = [r[t + 1]["profiled"] if profiled else None for r in recs]
+
+    def measured(key):
+        return [p[key] if p else "not measured" for p in prof]
+    log(f"  {label}: host copies per rank "
+        f"{[c['host_copies'] for c in col]} "
+        f"({[round(c['host_copy_bytes'] / 1e6, 2) for c in col]} MB)")
+    line = {"metric": "dist", "run": label, "card": card,
+            "backend": backend, "world": len(rr),
+            "cards_visible": torch.cuda.device_count(),
+            "spawn_wall_s": spawn_s,
+            "rank_entered_s": [r["startup"]["entered_s"] for r in rr],
+            "rank_ready_s": [r["startup"]["ready_s"] for r in rr],
+            "task_wall_s": [r["wall_s"] for r in rr],
+            "task_wall_s_profiled": [r[t + 1]["wall_s"] if profiled
+                                     else "not measured" for r in recs],
+            "device_s": measured("device_s"),
+            "collective_calls": [c["calls"] for c in col],
+            "collective_bytes": [c["bytes"] for c in col],
+            "collective_nccl_device_s": measured("nccl_device_s"),
+            "collective_gloo_s": measured("gloo_s"),
+            "host_copies": [c["host_copies"] for c in col],
+            "host_copy_bytes": [c["host_copy_bytes"] for c in col],
+            "peak_allocated_GB": [r["peak_bytes"] and r["peak_bytes"] / 1e9
+                                  for r in rr],
+            "launches": [{k: v for k, v in r["counts"].items() if v}
+                         for r in rr]}
+    if iterations:
+        line["iterations"] = iterations
+        line["collective_bytes_per_iteration"] = [
+            c["bytes"] / iterations for c in col]
+        if profiled:
+            line["collective_s_per_iteration"] = [
+                (p["nccl_device_s"] + p["gloo_s"]) / iterations
+                for p in prof]
+    line.update(extra)
+    log(json.dumps(line))
+    return line
+
+
+def dist_state_diffs(np, rr, ref_planes, ref_cost):
+    """Largest |difference| over the ranks of planes and cost against a
+    single-process state (numpy)."""
+    return (max(float(np.abs(r["planes"] - ref_planes).max()) for r in rr),
+            max(float(np.abs(r["cost"] - ref_cost).max()) for r in rr))
+
+
+class DistBench:
+    """Phase (i)'s bench scene and its single-process references: the
+    640x480 7-camera scene, the rect and exact configurations at one
+    level (middlebury widths, 8 iterations, no two-stage cull: the sharded
+    cost runs none)."""
+
+    def __init__(self, torch, np, device, images, rig, gt, Ps, base):
+        from gipuma_tpu_torch.geometry.camera import FAKE_BASELINE
+        self.torch, self.np, self.device = torch, np, device
+        self.images, self.rig, self.gt, self.Ps = images, rig, gt, Ps
+        self.rect = base.replace(cost_path="rect", pyramid_levels=1)
+        self.exact = base.replace(cost_path="exact", pyramid_levels=1)
+        self.rect_tiled = self.rect.with_depth_range(3.0, 8.0, rig.f,
+                                                     FAKE_BASELINE)
+        self.iterations = base.iterations
+
+    def job(self, params) -> dict:
+        """The scene spec of parallel/launch.build: pipeline.prepare_job's
+        scene and params on each rank."""
+        return {"job": dict(images=self.images, Ps=self.Ps, params=params)}
+
+    def med_err(self, depth, rows=slice(16, -16)) -> float:
+        """Median relative depth error over `rows` x [16:-16]."""
+        gt, s = self.gt, (rows, slice(16, -16))
+        return float(self.np.median(self.np.abs(depth[s] - gt[s]) / gt[s]))
+
+    def single(self, params, cost_fn):
+        """(planes, cost, depth) of the port's single-process run."""
+        from gipuma_tpu_torch.models.patchmatch import (finalize,
+                                                        make_generator,
+                                                        run_patchmatch)
+        from gipuma_tpu_torch.pipeline import prepare_job
+        torch = self.torch
+        job = prepare_job(self.images, self.Ps, params, device=self.device)
+        with torch.no_grad():
+            st = run_patchmatch(job.prep, job.params,
+                                make_generator(job.params.seed, self.device),
+                                cost_fn=cost_fn)
+            depth = finalize(st, job.prep)[0]
+        return (st.planes.cpu().numpy(), st.cost.cpu().numpy(),
+                depth.cpu().numpy())
+
+    def held(self, label, recs, t, backend, spawn_s, card, ref, tol_cost,
+             tol_planes):
+        """Sub-run `label` (task t) against the single-process `ref`:
+        every rank's launches, state within the tolerances, depth under the
+        gate; prints and returns its dist line."""
+        np = self.np
+        dist_check(recs, t, label)
+        rr = [r[t]["result"] for r in recs]
+        dp, dc = dist_state_diffs(np, rr, ref[0], ref[1])
+        meds = [self.med_err(r["depth"]) for r in rr]
+        line = dist_line(self.torch, card, label, backend, recs, t, spawn_s,
+                         self.iterations, {
+                             "max_plane_diff": dp, "max_cost_diff": dc,
+                             "median_rel_err": meds,
+                             "single_median_rel_err": self.med_err(ref[2])})
+        if not (dc <= tol_cost and dp <= tol_planes):
+            fail(f"({label}) against one process: cost {dc}, planes {dp} "
+                 f"(tolerances {tol_cost}, {tol_planes})")
+        if not all(m < 5e-3 for m in meds):
+            fail(f"({label}) median rel depth err {meds} (gate 5e-3)")
+        return line
+
+
+def dist_bench_phase(torch, card, bench):
+    """Phase (i), sub-runs (i1) and (i3) on the bench scene (3 and 4
+    ranks); each held as the module docstring says.  Returns {sub-run:
+    its dist line}."""
+    from gipuma_tpu_torch.ops.rect_cost import rect_multiview_cost
+    lines = {}
+    # (i1) view-sharded rect over 3 ranks, 2 views each.
+    recs, spawn_s, backend = dist_spawn(torch, 3, twice(dict(
+        kind="view", scene=bench.job(bench.rect), mesh=dict(view_shards=3),
+        finalize=True)), "i1 view-sharded rect")
+    lines["i1"] = bench.held("i1", recs, 0, backend, spawn_s, card,
+                             bench.single(bench.rect, rect_multiview_cost),
+                             1e-5, 1e-4)
+    # (i3) tile x view rect, 2 x 2 (scripts/multichip_realistic.py's layout
+    # brought down to 4 ranks).
+    recs, spawn_s, backend = dist_spawn(torch, 4, twice(dict(
+        kind="tiled_rect", images=bench.images, rig=bench.rig,
+        views=list(range(1, len(bench.images))), params=bench.rect_tiled,
+        depth=(3.0, 8.0), n_tiles=2,
+        mesh=dict(tile_shards=2, view_shards=2))), "i3 tile x view rect")
+    dist_check(recs, 0, "i3")
+    rr = [r[0]["result"] for r in recs]
+    meds = [bench.med_err(r["depth"]) for r in rr]
+    seam = [bench.med_err(r["depth"], SEAM_ROWS) for r in rr]
+    lines["i3"] = dist_line(torch, card, "i3", backend, recs, 0, spawn_s,
+                            bench.iterations, {
+                                "median_rel_err": meds,
+                                "seam_median_rel_err": seam,
+                                "margin": rr[0]["margin"],
+                                "h_pad": rr[0]["h_pad"]})
+    if not all(m < 5e-3 for m in meds):
+        fail(f"(i3) median rel depth err {meds} (gate 5e-3)")
+    if not all(m < 1e-2 for m in seam):
+        fail(f"(i3) band-seam median rel depth err {seam} (gate 1e-2)")
+    return lines
+
+
+def dist_pair_phase(torch, np, card, bench, folder):
+    """Phase (i), the 2-rank sub-runs in one world: (i2) view-sharded
+    exact and (i4) tiled exact (propagation only) on the bench scene, then
+    (i5) the CLI's --distributed over batch run (a)'s folder and the
+    sharded fusion of run (a)'s maps.  Returns {sub-run: its dist line}."""
+    from gipuma_tpu_torch.io.dmb import read_dmb
+    from gipuma_tpu_torch.io.ply import read_ply
+    from gipuma_tpu_torch.ops.cost import multiview_cost
+    interior = (slice(16, -16), slice(16, -16))
+    prop = bench.exact.replace(refine=False)
+    out_dir = os.path.join(folder["td"], "out_i5")
+    argv = (["-images_folder", folder["root"], "-krt_file", folder["par"],
+             "-output_folder", out_dir, "-gt", folder["gt_tpl"]]
+            + DINO_FLAGS + ["--distributed"])
+    # The CLI runs once, unprofiled (a profiled repeat of all 16 views
+    # would double the phase's longest sub-run); its sharded fusion is
+    # profiled on its own below.
+    recs, spawn_s, backend = dist_spawn(torch, 2, (
+        twice(dict(kind="view", scene=bench.job(bench.exact),
+                   mesh=dict(view_shards=2), finalize=True))
+        + twice(dict(kind="tile", scene=bench.job(prop),
+                     mesh=dict(tile_shards=2)))
+        + [dict(kind="cli", argv=argv)]
+        + twice(dict(kind="fuse", depths=folder["depths"],
+                     normals=folder["normals"], Ps=folder["Ps"],
+                     params=folder["fp"],
+                     mesh=dict(view_shards=2, max_view_shards=2),
+                     colors=folder["ids"]))),
+        "i2 view-sharded exact, i4 tiled exact (propagation only), "
+        "i5 CLI --distributed and sharded fusion")
+    lines = {"i2": bench.held("i2", recs, 0, backend, spawn_s, card,
+                              bench.single(bench.exact, multiview_cost),
+                              1e-5, 1e-4),
+             "i4": bench.held("i4", recs, 2, backend, spawn_s, card,
+                              bench.single(prop, multiview_cost),
+                              1e-6, 1e-6)}
+    dist_check(recs, 4, "i5")
+    rcs = [r[4]["result"]["rc"] for r in recs]
+    if rcs != [0, 0]:
+        fail(f"(i5) cli.main --distributed returned {rcs}")
+    differ, max_diff, meds = [], 0.0, []
+    for i, name in enumerate(folder["names"]):
+        stem = os.path.splitext(name)[0]
+        got = read_dmb(os.path.join(out_dir, stem, "disp.dmb"))
+        want = read_dmb(os.path.join(folder["run_dir"], stem, "disp.dmb"))
+        gt_i = read_dmb(os.path.join(folder["root"], "gt",
+                                     f"depth_{i:03d}.dmb"))
+        if not np.array_equal(got, want):
+            differ.append(name)
+            max_diff = max(max_diff, float(np.abs(got - want).max()))
+        meds.append(float(np.median(np.abs(got[interior] - gt_i[interior])
+                                    / gt_i[interior])))
+    pts_d = read_ply(os.path.join(out_dir, "fused.ply"))[0]
+    pts_a = read_ply(os.path.join(folder["run_dir"], "fused.ply"))[0]
+    ply_diff = (float(np.abs(pts_d - pts_a).max())
+                if pts_d.shape == pts_a.shape else None)
+    fused = [r[5]["result"] for r in recs]
+    keep_equal = [bool(np.array_equal(f["colors"], folder["ids_card"]))
+                  for f in fused]
+    fusion_prof = [r[6]["profiled"] for r in recs]
+    lines["i5"] = dist_line(torch, card, "i5", backend, recs, 4, spawn_s,
+                            None, {
+        "views": len(folder["names"]), "views_not_bit_equal": differ,
+        "max_disp_diff": max_diff, "median_rel_err": meds,
+        "fused_ply_points": len(pts_d),
+        "single_fused_ply_points": len(pts_a),
+        "fused_ply_max_point_diff": ply_diff,
+        "single_run_a_wall_s": folder["wall_s"],
+        "sharded_fusion_s": [r[5]["wall_s"] for r in recs],
+        "sharded_fusion_device_s": [p["device_s"] for p in fusion_prof],
+        "sharded_fusion_collective_s": [p["nccl_device_s"] + p["gloo_s"]
+                                        for p in fusion_prof],
+        "sharded_fusion_collective_bytes": [r[5]["collectives"]["bytes"]
+                                            for r in recs],
+        "single_fusion_s_card": folder["fusion_s_card"],
+        "sharded_fusion_keep_equal": keep_equal}, profiled=False)
+    if not all(m < 5e-3 for m in meds):
+        fail(f"(i5) median rel depth err {meds} (gate 5e-3)")
+    if ply_diff is None or ply_diff > 1e-5:
+        fail(f"(i5) fused.ply: {len(pts_d)} points against one process's "
+             f"{len(pts_a)}, largest point difference {ply_diff} (1e-5)")
+    if not all(keep_equal):
+        fail(f"(i5) the sharded fusion kept other pixels than the card's "
+             f"single-process fusion: {keep_equal}")
+    return lines
 
 
 def main() -> int:
@@ -1488,8 +1831,19 @@ def main() -> int:
     stamp("(h) native IO")
     native_io_phase(np, runs["rect"]["res"], images[0], rig.cameras[0].P)
 
+    # ---- 4g. (i) the parallel layer: several ranks on the card ---------
+    bench = DistBench(torch, np, device, images, rig, gt, Ps, paths["exact"])
+    dist_lines = dist_bench_phase(torch, card, bench)
+
     # ---- 4b. the scripts' path: a folder of views, CLI, fusion ----------
-    batch = batch_phase(torch, np, device, card)
+    # (then (i2), (i4) and (i5) in one 2-rank world, (i5) over that folder
+    # against batch run (a))
+    with tempfile.TemporaryDirectory() as td:
+        folder = batch_folder(np, td)
+        batch = batch_phase(torch, np, device, card, folder)
+        dist_lines.update(dist_pair_phase(torch, np, card, bench, folder))
+    if sorted(dist_lines) != ["i1", "i2", "i3", "i4", "i5"]:
+        fail(f"(i) sub-runs missing: ran {sorted(dist_lines)}")
 
     # ---- 5. timings ----------------------------------------------------------
     stamp("timings")
@@ -1908,6 +2262,10 @@ def main() -> int:
         row["new_path_launches"] = {
             lb: runs[lb]["launches"][row["name"]]
             for lb in ("cull_downscale", *SCAN_PATHS)}
+        # Phase (i)'s sharded runs: the kernel's launches on each rank.
+        row["dist_launches"] = {
+            lb: [ranks.get(row["name"], 0) for ranks in ln["launches"]]
+            for lb, ln in dist_lines.items()}
         row["new_path_ms_per_launch"] = {
             lb: per_launch_ms(lb, row["name"])
             for lb in ("cull_downscale", *SCAN_PATHS)

@@ -5,8 +5,12 @@ reference delegates to fusibile.
 Counterpart of ``gipuma_tpu/cli.py:25-374``: the same flags, names and
 defaults, plus ``--device`` (default ``cuda``; the JAX CLI picks its
 platform from JAX_PLATFORMS).  Without a CUDA device the CLI raises
-unless given ``--device cpu``.  ``--distributed`` is a later slice of the
-port and raises NotImplementedError.
+unless given ``--device cpu``.  ``--distributed`` runs one process per
+rank (``python -m torch.distributed.run --nproc_per_node W -m
+gipuma_tpu_torch.cli --distributed ...``): each process takes its block of
+the reference views (parallel/distributed.py) into a shared output folder,
+waits at a barrier for every process's views, fuses with the view axis
+over all processes (fusion/sharded.py), and process 0 writes fused.ply.
 
 Usage mirrors the reference:
     python -m gipuma_tpu_torch.cli img0.png img1.png ... -images_folder F \
@@ -24,6 +28,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 from .config import AlgorithmParams, CostCombination, FusionParams, PRESETS
 
@@ -85,9 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fuse", action="store_true",
                    help="fuse the per-view depth maps (fusibile stage)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host scan (the JAX package's parallel/); a "
-                        "later slice of the port: raises "
-                        "NotImplementedError")
+                   help="multi-process scan: one process per rank "
+                        "(torchrun's RANK / WORLD_SIZE / MASTER_ADDR / "
+                        "MASTER_PORT), shared output folder, sharded "
+                        "fusion")
     p.add_argument("--skip_existing", action="store_true",
                    help="resume: skip views whose disp.dmb already exists")
     p.add_argument("--disp_thresh", type=float, default=0.5)
@@ -153,14 +159,19 @@ def params_from_args(args) -> AlgorithmParams:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "gipuma_tpu_torch: --distributed (the JAX package's parallel/ "
-            "and fusion/sharded.py) is slice 8 of the port")
     from .io.images import list_images
     from .pipeline import resolve_device, run_batch
 
-    device = resolve_device(args.device)
+    if args.distributed:
+        # One process per rank (torchrun, or a world the caller already
+        # initialised); each takes its card, or the CPU when asked.
+        from .parallel.distributed import init_distributed, rank_device
+        pidx, pcount = init_distributed(device=args.device)
+        device = rank_device(args.device)
+        print(f"[gipuma_tpu_torch] distributed: process {pidx}/{pcount} "
+              f"on {device}")
+    else:
+        device = resolve_device(args.device)
 
     folder = Path(args.images_folder) if args.images_folder else Path(".")
     names = args.images or list_images(folder)
@@ -170,7 +181,10 @@ def main(argv=None) -> int:
     paths = [str(folder / n) for n in names]
 
     params = params_from_args(args)
-    out_root = Path(args.output_folder) / time.strftime("%Y%m%d-%H%M%S")
+    # Distributed processes must agree on the output directory (it is the
+    # work-partition ledger): no per-process timestamp subdirectory.
+    out_root = (Path(args.output_folder) if args.distributed
+                else Path(args.output_folder) / time.strftime("%Y%m%d-%H%M%S"))
 
     if args.all_views:
         ref_indices = None
@@ -179,13 +193,21 @@ def main(argv=None) -> int:
     else:
         ref_indices = [0]
 
-    results = run_batch(paths, params, out_root,
-                        p_folder=args.p_folder, krt_file=args.krt_file,
-                        calib_file=args.calib_file,
-                        pmvs_folder=args.pmvs_folder,
-                        ref_indices=ref_indices,
-                        color=args.color_processing,
-                        skip_existing=args.skip_existing, device=device)
+    if args.distributed:
+        from .parallel.distributed import run_batch_distributed
+        results = run_batch_distributed(
+            paths, params, out_root, p_folder=args.p_folder,
+            krt_file=args.krt_file, calib_file=args.calib_file,
+            pmvs_folder=args.pmvs_folder, ref_indices=ref_indices,
+            color=args.color_processing, device=device)
+    else:
+        results = run_batch(paths, params, out_root,
+                            p_folder=args.p_folder, krt_file=args.krt_file,
+                            calib_file=args.calib_file,
+                            pmvs_folder=args.pmvs_folder,
+                            ref_indices=ref_indices,
+                            color=args.color_processing,
+                            skip_existing=args.skip_existing, device=device)
     for r in results:
         print(f"{r.ref_name}: {r.runtime_s:.2f}s, views={r.view_subset}, "
               f"depth=[{r.depth_min:.3f},{r.depth_max:.3f}]")
@@ -327,12 +349,18 @@ def main(argv=None) -> int:
                           normal_thresh=args.normal_thresh,
                           num_consistent=args.num_consistent)
         order = ref_indices if ref_indices is not None else list(range(len(names)))
+        distributed = args.distributed and dist.is_initialized()
+        if distributed:
+            # Every process's views are on disk before any process reads
+            # another's .dmb files.
+            dist.barrier()
         if len(results) == len(order):
             depths = np.stack([r.depth for r in results])
             normals = np.stack([r.normals for r in results])
         else:
-            # Resumed batch (--skip_existing): this process holds only the
-            # views it ran — fuse from the per-view outputs on disk
+            # Distributed or resumed batch (--skip_existing): this process
+            # holds only the views it ran — fuse from the per-view outputs
+            # on disk
             # (the .dmb files are the interchange format, exactly how the
             # reference's scripts hand fusibile the results).
             from .io.dmb import read_dmb
@@ -347,8 +375,21 @@ def main(argv=None) -> int:
                 normals.append(read_dmb(vdir / "normals.dmb"))
             depths = np.stack(depths)
             normals = np.stack(normals)
-        pts, nrm, col = fuse_depthmaps(
-            depths, normals, [Ps[i] for i in order], fp, device=device)
+        if distributed:
+            # The consistency check's view axis over every process
+            # (fusion/sharded.py); process 0 writes the cloud.
+            from .fusion.sharded import fuse_depthmaps_sharded
+            from .parallel.mesh import make_mesh
+            world = dist.get_world_size()
+            pts, nrm, col = fuse_depthmaps_sharded(
+                depths, normals, [Ps[i] for i in order], fp,
+                make_mesh(view_shards=world, max_view_shards=world),
+                device=device)
+            if dist.get_rank() != 0:
+                return 0
+        else:
+            pts, nrm, col = fuse_depthmaps(
+                depths, normals, [Ps[i] for i in order], fp, device=device)
         out = out_root / "fused.ply"
         n = write_ply_points(out, pts, nrm, col)
         print(f"fused cloud: {n} points -> {out}")

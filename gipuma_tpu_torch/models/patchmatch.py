@@ -102,10 +102,10 @@ def random_unit_hemisphere(gen: torch.Generator, view_vec: torch.Tensor
     return T.flip_to_hemisphere(T.normalize(g, eps=1e-20), view_vec)
 
 
-def init_state(scene, params: AlgorithmParams, gen: torch.Generator,
-               cost_fn) -> PMState:
-    """Random init: uniform disparity -> depth, random hemisphere normal,
-    plane distance, initial multiview cost (gipuma_init_cu2)."""
+def init_planes(scene, params: AlgorithmParams,
+                gen: torch.Generator) -> torch.Tensor:
+    """Random init planes [H, W, 4]: uniform disparity -> depth, random
+    hemisphere normal, plane distance (gipuma_init_cu2)."""
     h, w = scene.rays.shape[:2]
     dev = scene.rays.device
     x, y = T.pixel_grid(h, w, device=dev)
@@ -116,13 +116,27 @@ def init_state(scene, params: AlgorithmParams, gen: torch.Generator,
     depth = T.disparity_depth(scene.f, scene.baseline, disp)
     n = random_unit_hemisphere(gen, scene.view_vec)
     d = T.plane_d_at_pixel(scene.M_inv, scene.P_col4, n, x, y, depth)
-    planes = torch.cat([n, d[..., None]], dim=-1)
-    cost = torch.zeros((h, w), dtype=planes.dtype, device=dev)
+    return torch.cat([n, d[..., None]], dim=-1)
+
+
+def initial_cost(scene, params: AlgorithmParams, planes: torch.Tensor,
+                 cost_fn) -> torch.Tensor:
+    """The multiview cost [H, W] of `planes`, parity by parity."""
+    cost = torch.zeros(planes.shape[:2], dtype=planes.dtype,
+                       device=planes.device)
     for parity in (0, 1):
-        c = cost_fn(scene, params, parity, cb.extract(n, parity),
-                    cb.extract(d, parity))
+        c = cost_fn(scene, params, parity, cb.extract(planes[..., :3], parity),
+                    cb.extract(planes[..., 3], parity))
         cost = cb.interleave(cost, c, parity)
-    return PMState(planes=planes, cost=cost, gen=gen)
+    return cost
+
+
+def init_state(scene, params: AlgorithmParams, gen: torch.Generator,
+               cost_fn) -> PMState:
+    """Random init (init_planes) and its initial multiview cost."""
+    planes = init_planes(scene, params, gen)
+    return PMState(planes=planes,
+                   cost=initial_cost(scene, params, planes, cost_fn), gen=gen)
 
 
 def _fold_better(scene, params, parity, x, y, cand_n, cand_d, cand_ok,
@@ -172,14 +186,22 @@ def _write_back(state: PMState, scene, params, parity, n_now, d_now, c_now,
 
 
 def propagation_sweep(state: PMState, scene, params: AlgorithmParams,
-                      parity: int, offsets, cost_fn) -> PMState:
+                      parity: int, offsets, cost_fn,
+                      halo_planes: torch.Tensor | None = None) -> PMState:
     """One checkerboard propagation sub-sweep over the neighbour `offsets`
     ((dy, dx) pairs, evaluated in order): each active pixel takes the
-    first candidate plane that strictly lowers its cost."""
+    first candidate plane that strictly lowers its cost.
+
+    halo_planes: optional row-extended planes [H + 2*pad, W, 4] whose
+    first and last `pad` rows came from the neighbouring tile shards
+    (parallel/tiled.py); None = edge replication at the image's rows."""
     w = state.cost.shape[1]
     x, y = _active_coords(scene, parity)
     pad = max(max(abs(dy), abs(dx)) for dy, dx in offsets)
-    planes_eo = cb.PaddedEO.build(state.planes, pad, pad + 2)
+    if halo_planes is not None:
+        planes_eo = cb.PaddedEO.build_row_padded(halo_planes, pad, pad + 2)
+    else:
+        planes_eo = cb.PaddedEO.build(state.planes, pad, pad + 2)
     g_h = scene.global_h.to(y.dtype)
     cand_n, cand_d, cand_ok = [], [], []
     for dy, dx in offsets:
@@ -203,13 +225,17 @@ def propagation_sweep(state: PMState, scene, params: AlgorithmParams,
 
 
 def axial_propagation_sweep(state: PMState, scene, params: AlgorithmParams,
-                            parity: int, dist: int, cost_fn) -> PMState:
+                            parity: int, dist: int, cost_fn,
+                            halo_planes: torch.Tensor | None = None
+                            ) -> PMState:
     """propagation_sweep over the four axial neighbours at distance `dist`
-    (1 = close, 5 = far), in the reference's order up, down, left, right."""
+    (1 = close, 5 = far), in the reference's order up, down, left, right.
+    halo_planes as in propagation_sweep, with `dist` halo rows a side."""
     dist = int(dist)
     return propagation_sweep(state, scene, params, parity,
                              tuple((sy * dist, sx * dist)
-                                   for sy, sx in CLOSE_OFFSETS), cost_fn)
+                                   for sy, sx in CLOSE_OFFSETS), cost_fn,
+                             halo_planes=halo_planes)
 
 
 def refinement_sweep(state: PMState, scene, params: AlgorithmParams,

@@ -74,6 +74,21 @@ class PaddedEO:
         return PaddedEO(E=ap[:, 0::2], O=ap[:, 1::2], pr=pr, pc=pc, h=h,
                         w2=w // 2)
 
+    @staticmethod
+    def build_row_padded(a_ext: torch.Tensor, pr: int, pc: int
+                         ) -> "PaddedEO":
+        """Like `build`, but `a_ext` already carries pr real halo rows on
+        each side (tile sharding, parallel/tiled.py); only the columns are
+        edge-padded."""
+        if pc % 2:
+            pc += 1
+        h_ext, w = a_ext.shape[:2]
+        assert w % 2 == 0, "width must be even"
+        ci = torch.arange(-pc, w + pc, device=a_ext.device).clamp(0, w - 1)
+        ap = a_ext[:, ci]
+        return PaddedEO(E=ap[:, 0::2], O=ap[:, 1::2], pr=pr, pc=pc,
+                        h=h_ext - 2 * pr, w2=w // 2)
+
     def shifted(self, dy: int, dx: int, parity: int) -> torch.Tensor:
         """[H, W2(, C)] values at (y + dy, x + dx) for all active pixels
         (y, x) of `parity`; out-of-image reads are edge-replicated."""

@@ -7,8 +7,8 @@
 * a second run with --skip_existing into the same output folder finds
   every view done and fuses from the .dmb files on disk;
 * params_from_args equals the JAX CLI's over flag sets with each preset;
-* --distributed raises NotImplementedError; without CUDA and without
-  --device, main raises;
+* --distributed raises where torchrun's variables name no rendezvous;
+  without CUDA and without --device, main raises;
 * utils.profiling's PhaseTimer and megapixel meter."""
 import dataclasses
 import subprocess
@@ -149,8 +149,15 @@ def test_parsers_share_flags_and_defaults():
     assert t["device"] == "cuda"
 
 
-def test_distributed_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 8"):
+def test_distributed_raises(tmp_path, monkeypatch):
+    """--distributed runs (tests/test_torch_distributed.py); it raises,
+    before waiting on any rendezvous, where torchrun's variables ask for
+    two processes without saying where they meet."""
+    for v in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(v, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="MASTER_ADDR, MASTER_PORT unset"):
         tcli.main(["--distributed", "--device", "cpu", "x.png"])
 
 
