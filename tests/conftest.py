@@ -23,16 +23,10 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import pytest
 
-import time_limit
-
 
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips where none is present")
-    config.addinivalue_line(
-        "markers", "slow: a JAX-package test whose call takes over 60 s "
-        "under the tier-1 command; run them with -m slow")
-    config.pluginmanager.register(time_limit)
 
 
 @pytest.fixture(scope="session")

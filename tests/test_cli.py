@@ -1,7 +1,6 @@
 """CLI end-to-end: batch over all views, fusion (in-memory and the
 disk-fallback path a resumed/distributed invocation takes)."""
 import numpy as np
-import pytest
 
 from gipuma_tpu.cli import main
 from gipuma_tpu.io.vis import save_png
@@ -77,7 +76,6 @@ def test_algorithm_flag_roundtrip():
     assert params_from_args(args).algorithm == MatchingAlgorithm.PM
 
 
-@pytest.mark.slow
 def test_cli_census_end_to_end(tmp_path):
     """-a ct end-to-end on the rect path: the census engine produces a
     sane depth map via the CLI."""

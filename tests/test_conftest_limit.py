@@ -1,11 +1,15 @@
-"""The suite's per-test time limit (tests/time_limit.py), in a pytest run of
-its own with a 1 s limit: a test past the limit fails with the limit's
-message, and the test after it still runs and passes.  Under xdist a test
-stuck where the timer cannot reach it ends its worker after the margin, and
-the run goes on in a new worker.  A test marked `slow` has no limit."""
+"""The suite's clock (tests/time_limit.py).  The per-test time limit, in a
+pytest run of its own with a 1 s limit: a test past the limit fails with the
+limit's message, and the test after it still runs and passes.  Under xdist a
+test stuck where the timer cannot reach it ends its worker after the margin,
+and the run goes on in a new worker.  A test marked `slow` has no limit.
+The slow list: `-m slow` selects exactly the listed JAX-package tests."""
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
+from time_limit import SLOW
 
 pytest_plugins = ["pytester"]
 
@@ -20,7 +24,6 @@ time_limit.MARGIN_S = 2
 
 
 def pytest_configure(config):
-    config.addinivalue_line("markers", "slow: no limit")
     config.pluginmanager.register(time_limit)
 """
 
@@ -71,3 +74,21 @@ def test_past_the_limit_fails_and_the_run_goes_on(pytester, case, workers):
     else:
         result.stdout.fnmatch_lines([
             "*crashed while running*test_past_the_limit*"])
+
+
+def test_slow_set_is_the_listed_jax_tests():
+    """Every entry of SLOW names a test of the JAX reference package's own
+    files, and `-m slow` collects those tests and no other."""
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/", "--collect-only", "-q",
+         "-m", "slow", "-p", "no:cacheprovider", "-p", "no:randomly"],
+        cwd=TESTS.parent, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    collected = {}
+    for line in out.stdout.splitlines():
+        if line.startswith("tests/") and "::" in line:
+            path, name = line.split("::", 1)
+            collected.setdefault(Path(path).name, set()).add(
+                name.split("[")[0])
+    assert collected == SLOW
+    assert not any(f.startswith("test_torch_") for f in SLOW)

@@ -12,8 +12,6 @@ import pytest
 
 from gipuma_tpu.eval.parity import run_cull_hard_scene
 
-pytestmark = pytest.mark.slow
-
 
 def _same_error_class(cull, plain, label, med_cap=5e-3, p99_factor=2.5):
     """Cull must stay in the plain path's error class: median within 2x of

@@ -13,7 +13,6 @@ import pytest
 from gipuma_tpu.eval.parity import run_preset_parity
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("preset,iters,texture",
                          [("middlebury", 3, "sos"),
                           ("dtu_fast", 3, "sos"),

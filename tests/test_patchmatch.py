@@ -152,7 +152,6 @@ def test_scan_runner_matches_host_loop():
                                np.asarray(want.cost), rtol=0, atol=0)
 
 
-@pytest.mark.slow
 def test_scan_runner_matches_host_loop_rect():
     from gipuma_tpu.models.patchmatch import run_patchmatch_host_loop
     from gipuma_tpu.models.rect_scene import build_rect_scene

@@ -3,7 +3,6 @@ synthetic scenes as accurately as the single-level engine — the final
 level runs the same full-resolution refinement."""
 import jax
 import numpy as np
-import pytest
 
 from gipuma_tpu.config import AlgorithmParams
 from gipuma_tpu.models.pyramid import (downscale2, run_patchmatch_pyramid,
@@ -43,7 +42,6 @@ def test_pyramid_recovers_plane():
     assert np.isfinite(cost).all() and normals.shape == (h, w, 3)
 
 
-@pytest.mark.slow
 def test_pyramid_fine_trims_quality():
     """The bench configuration's fine-level trims (pyramid_fine_far=False,
     pyramid_fine_refine_rounds, pyramid_carry_cost — config.py) must hold

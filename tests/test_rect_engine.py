@@ -42,7 +42,6 @@ def test_tables_are_clean():
         assert pair["ret_affected_frac"] <= 0.005, pair
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("slant", [(0.0, 0.0), (0.35, -0.25)])
 def test_recovers_plane(slant):
     images, rig, gt_depth, params, scene, _ = make_setup(slant=slant)
@@ -57,7 +56,6 @@ def test_recovers_plane(slant):
                               f"median {np.median(err):.4f}")
 
 
-@pytest.mark.slow
 def test_recovers_plane_onesided_edges():
     """Quality gate for sdg_onesided_edges (ring-free window gradients):
     slanted-plane recovery must match the ring mode's bar."""
@@ -74,7 +72,6 @@ def test_recovers_plane_onesided_edges():
                               f"median {np.median(err):.4f}")
 
 
-@pytest.mark.slow
 def test_census_cost_discriminates():
     """The rect-path census cost (-a ct, _rect_pair_cost_batch_census) must
     separate the true plane from a perturbed one — census is exposed on
@@ -117,7 +114,6 @@ def test_census_cost_discriminates():
     assert np.mean(c_true < c_wrong) > 0.9
 
 
-@pytest.mark.slow
 def test_drop_unsupported_view():
     """A forward-motion source (baseline along the optical axis cannot be
     row-rectified) is DROPPED as an invalid view instead of failing the
@@ -163,7 +159,6 @@ def test_drop_unsupported_view():
                          3.0, 8.0)
 
 
-@pytest.mark.slow
 def test_two_plane_discontinuity():
     images, rig, gt_depth, near_mask = two_plane_scene(
         num_cams=5, h=48, w=64, focal=100.0)
@@ -188,7 +183,6 @@ def test_two_plane_discontinuity():
         assert np.median(e) < 0.015, f"median rel err {np.median(e):.4f}"
 
 
-@pytest.mark.slow
 def test_permute_skip_is_exact():
     """rect_permute_skip (config.py): masking the forward-permute pass-2 /
     return-permute pass-1 tiles that hold no consumed coordinate must not
@@ -232,7 +226,6 @@ def test_permute_skip_is_exact():
         np.testing.assert_allclose(on, off, rtol=2e-6, atol=1e-5)
 
 
-@pytest.mark.slow
 def test_pack_m_cost_error_is_small():
     """rect_pack_m (config.py): f16-packing the two smaller plane-vector
     components for the forward permute must perturb per-view costs only at
@@ -331,7 +324,6 @@ def test_two_stage_cull_degenerate_equals_full():
     assert np.allclose(c2, expect, atol=1e-4), np.abs(c2 - expect).max()
 
 
-@pytest.mark.slow
 def test_recovers_plane_two_stage_cull():
     """Quality gate for rect_two_stage_cull: slanted-plane recovery with
     sparse-winner-only full evaluation must match the plain path's bar
@@ -349,7 +341,6 @@ def test_recovers_plane_two_stage_cull():
                               f"median {np.median(err):.4f}")
 
 
-@pytest.mark.slow
 def test_recovers_plane_cull_view_stride():
     """cull_view_stride=2: candidate ranking from every other view only
     (stage-2 still evaluates the winner over ALL views) must hold the
@@ -367,7 +358,6 @@ def test_recovers_plane_cull_view_stride():
                               f"median {np.median(err):.4f}")
 
 
-@pytest.mark.slow
 def test_recovers_plane_cull_early_term():
     """config.cull_early_term: pixels whose best candidate does not beat
     the current plane in the sparse operator skip the full pass via the

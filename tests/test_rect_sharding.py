@@ -26,7 +26,6 @@ def setup():
     return params, scene
 
 
-@pytest.mark.slow
 def test_rect_view_sharded_matches_single(setup):
     params, scene = setup
     key = jax.random.PRNGKey(0)

@@ -27,7 +27,6 @@ def _mk_inputs(key, C, hr, wr, K):
     return ref, src_packed, abc
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("C,K,box", [(1, 2, 5), (3, 1, 7)])
 def test_fused_sdg_matches_unfused(C, K, box):
     # wr = 4 blocks with span 3 exercises the dynamic analytic base.
@@ -46,7 +45,6 @@ def test_fused_sdg_matches_unfused(C, K, box):
                                rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("C,K,box", [(1, 2, 5), (1, 1, 7)])
 def test_fused_sdg_onesided_matches_unfused(C, K, box):
     """sdg_onesided_edges: the ring-free kernel matches the ring-free
@@ -119,7 +117,6 @@ def test_fused_sdg_hw_valid_masking():
     np.testing.assert_array_equal(got[:, :hv, :wv], full[:, :hv, :wv])
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("d_hi,onesided,span", [
     (40.0, False, 3),
     (40.0, True, 3),

@@ -6,7 +6,6 @@ a per-(view-count, rect-shape) remote compile."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from gipuma_tpu.config import AlgorithmParams
 from gipuma_tpu.geometry.camera import FAKE_BASELINE
@@ -87,7 +86,6 @@ def test_ledger_unifies_buckets_across_views():
     assert iA["shape_bucket"] == iB["shape_bucket"]
 
 
-@pytest.mark.slow
 def test_quantized_engine_quality():
     """End-to-end: the quantized scene must recover the plane exactly as
     well as the engine's normal quality bar."""

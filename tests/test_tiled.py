@@ -11,8 +11,6 @@ from gipuma_tpu.parallel.tiled import run_patchmatch_tile_sharded
 from gipuma_tpu.utils.synthetic import plane_scene
 from jax.sharding import Mesh
 
-pytestmark = pytest.mark.slow
-
 
 @pytest.fixture(scope="module")
 def setup():

@@ -8,7 +8,6 @@ sharded over the view axis underneath the tiles, and no quality cliff at
 the band seam."""
 import jax
 import numpy as np
-import pytest
 
 from gipuma_tpu.config import AlgorithmParams
 from gipuma_tpu.geometry.camera import FAKE_BASELINE
@@ -17,8 +16,6 @@ from gipuma_tpu.parallel.tiled_rect import (finalize_tiled,
                                             prepare_tiled_rect,
                                             run_patchmatch_tiled_rect)
 from gipuma_tpu.utils.synthetic import plane_scene
-
-pytestmark = pytest.mark.slow
 
 
 def _scene(h=48, w=128, iterations=3):

@@ -105,7 +105,7 @@ def setup():
              parity=0, n=cand["rect"][0], d=cand["rect"][1]),
     ]
     recs = launch.spawn(launch.run_tasks, 4, args=(tasks,), device="cpu",
-                        timeout=240)
+                        timeout=600)
     return dict(recs=recs, rect=rect, exact=exact, tp=tp, tpe=tpe, jp=jp,
                 jr=jr, je=je, cand=cand)
 

@@ -112,7 +112,7 @@ def setup():
              mesh=dict(tile_shards=2, view_shards=2), **rect),
     ]
     recs = launch.spawn(launch.run_tasks, 4, args=(tasks,), device="cpu",
-                        timeout=240)
+                        timeout=600)
     return dict(recs=recs, js=js, jp=jp, tp=tp, tree=tree, planes0=planes0,
                 gt=gt, r=(r_images, r_rig, r_gt, r_jp), u_gt=u_gt)
 
