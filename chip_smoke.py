@@ -136,7 +136,9 @@ Phases, in order (any failure exits non-zero before the last line):
    two-pass chain it replaced; the fused cost at the full pass's K=1
    and the cull pass's K=4 shapes; the affine gather at one row and at
    the census path's rows launches, beside its path-level bound per
-   launch, counted by its wrapper from each launch's shape); each path's
+   launch, counted by its wrapper from each launch's shape; the exact PM
+   window sum at both benchmark cells' unit shapes, held to 1e-4 of its
+   plain version there: exact_cost_lines); each path's
    line also holds its peak allocated memory and, for the scan paths, the
    CUDA graph's capture seconds and replays per level; a `cull_downscale`
    line beside the pyramid and a `scan_vs_host` line per scan path;
@@ -193,10 +195,11 @@ KERNEL_SYMBOLS = {"row_gather_nearest": "row_gather_nearest_kernel",
                   "bilinear_sample": "bilinear_sample_kernel",
                   "row_gather_lerp": "row_gather_lerp_kernel",
                   "row_gather_affine": "row_gather_affine_kernel",
-                  "permute2d": "permute2d_kernel"}
+                  "permute2d": "permute2d_kernel",
+                  "exact_window_cost": "exact_window_cost_kernel"}
 # The kernels each path runs.
 PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
-                "exact": ("bilinear_sample",),
+                "exact": ("bilinear_sample", "exact_window_cost"),
                 "pyramid": ("permute2d", "sdg_fused_cost"),
                 "census_exact": ("bilinear_sample",),
                 "census": ("permute2d", "row_gather_affine"),
@@ -208,7 +211,7 @@ PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "cull_downscale": ("permute2d", "sdg_fused_cost"),
                 "rect_scan": ("permute2d", "sdg_fused_cost"),
                 "pyramid_scan": ("permute2d", "sdg_fused_cost"),
-                "exact_scan": ("bilinear_sample",)}
+                "exact_scan": ("bilinear_sample", "exact_window_cost")}
 # level_dispatch="scan" paths -> the host-loop path each must equal.
 SCAN_PATHS = {"rect_scan": "rect", "pyramid_scan": "pyramid",
               "exact_scan": "exact"}
@@ -840,7 +843,7 @@ def plane_dist(np, pts, plane) -> float:
 
 # Batch runs (a) and (b): the CLI's extra flags and the kernels each must
 # launch.
-BATCH_RUNS = {"a": ([], ("bilinear_sample",)),
+BATCH_RUNS = {"a": ([], ("bilinear_sample", "exact_window_cost")),
               "b": (["--cost_path", "rect", "--pyramid_levels", "3",
                      "--pyramid_fine_iterations", "1"],
                     ("permute2d", "sdg_fused_cost"))}
@@ -1083,10 +1086,10 @@ def batch_phase(torch, np, device, card, folder: dict):
 
 # Kernels each sub-run of phase (i) must launch on every rank.
 DIST_KERNELS = {"i1": ("permute2d", "sdg_fused_cost"),
-                "i2": ("bilinear_sample",),
+                "i2": ("bilinear_sample", "exact_window_cost"),
                 "i3": ("permute2d", "sdg_fused_cost"),
-                "i4": ("bilinear_sample",),
-                "i5": ("bilinear_sample",)}
+                "i4": ("bilinear_sample", "exact_window_cost"),
+                "i5": ("bilinear_sample", "exact_window_cost")}
 # Band-boundary rows of the 2-tile runs at 480 rows: 8 rows each side of
 # the stitch.
 SEAM_ROWS = slice(232, 248)
@@ -1369,6 +1372,81 @@ def dist_pair_phase(torch, np, card, bench, folder):
     if not all(keep_equal):
         fail(f"(i5) the sharded fusion kept other pixels than the card's "
              f"single-process fusion: {keep_equal}")
+    return lines
+
+
+# The exact PM window sum's unit shapes in the benchmark's cells: (K
+# candidates a launch, box, increment, H, W); C = 1.
+EXACT_COST_SHAPES = {"dino": (4, 11, 2, 480, 640),
+                     "dtu_fast": (1, 15, 2, 1200, 1600)}
+
+
+def exact_cost_lines(torch, card) -> dict:
+    """The exact PM cost's window-sum kernel (csrc/exact_cost.cu) at each
+    EXACT_COST_SHAPES unit, beside its plain version and its bound: a
+    noise reference image with its central gradients, padded as the scene
+    pads them, and samples that are the reference's own windows plus
+    noise (matching costs, as near a converged plane).  Held to 1e-4 abs
+    against the plain version; device time by CUDA-graph replay.  Bound:
+    the samples read once and the costs written once at HBM rate (the
+    reference planes are L2-resident)."""
+    from gipuma_tpu_torch.config import MAXCOST, AlgorithmParams
+    from gipuma_tpu_torch.ops import checkerboard as cb
+    from gipuma_tpu_torch.ops import cost as ec
+    from gipuma_tpu_torch.ops.sampling import central_gradients
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    lines = {}
+    for cell, (K, box, inc, H, W) in EXACT_COST_SHAPES.items():
+        p = AlgorithmParams(box_hsize=box, box_vsize=box,
+                            window_increment=inc)
+        offs = ec.window_offsets(p)
+        O = len(offs)
+        img = torch.rand((1, H, W), generator=g, device=dev) * 200 + 20
+        gx, gy = central_gradients(img)
+        pr, pc = p.box_vrad, p.box_hrad + 2
+        eos = [cb.PaddedEO.build(a.permute(1, 2, 0), pr, pc)
+               for a in (img, gx, gy)]
+        wins = torch.cat([eo.windows(offs, 0).permute(0, 3, 1, 2)
+                          for eo in eos], 1)              # [O, 3, H, W2]
+        smp = (wins[None] + torch.randn((K, O, 3, H, W // 2), generator=g,
+                                        device=dev) * 2.0
+               ).reshape(K * O, 3, H, W // 2).contiguous()
+        del wins
+        scene = ec.ScenePack(**dict.fromkeys(ec.ScenePack._fields)).\
+            _replace(view_valid=torch.ones(1, device=dev), ref_img=eos[0],
+                     ref_gx=eos[1], ref_gy=eos[2])
+        ref, rgx, rgy, table = ec.exact_window_inputs(scene, offs, dev)
+        terms = ec.pm_reference_terms(scene, p, offs, 0)
+        valid = scene.view_valid
+        out = torch.empty((K, H, W // 2), device=dev)
+
+        def kern():
+            ec.exact_window_cost_cuda(smp, ref, rgx, rgy, table, valid, 0,
+                                      out, 0, pr, eos[0].pc, p)
+
+        kern()
+        want = ec.pm_window_cost_plain(smp, terms, p, valid[0])
+        fin = want < MAXCOST
+        if not bool(fin.all()) or not torch.equal(out < MAXCOST, fin):
+            fail(f"exact_window_cost ({cell}): non-finite costs")
+        err = float((out - want).abs().max())
+        if not err <= 1e-4:
+            fail(f"exact_window_cost differs from its plain version "
+                 f"({cell}): max abs diff {err}")
+        nbytes = 4 * (smp.numel() + out.numel() + 3 * ref.numel())
+        lines[cell] = {
+            "kernel": "exact_window_cost", "card": card,
+            "shape": f"K={K} x {O} offsets (box {box}/inc {inc}), "
+                     f"{H}x{W // 2} half-grid, C=1",
+            "ms": graph_ms(kern, reps=10),
+            "plain_ms": graph_ms(lambda: ec.pm_window_cost_plain(
+                smp, terms, p, valid[0]), reps=3, rounds=3),
+            "library_ms": None, "bound_ms": nbytes / HBM_BPS * 1e3,
+            "bound_by": "bytes", "max_abs_err": err,
+            "mean_cost": float(want.mean())}
+        del smp, terms, want, out
+        torch.cuda.empty_cache()
     return lines
 
 
@@ -1948,6 +2026,7 @@ def main() -> int:
                              ("rect", "permute2d"),
                              ("rect", "sdg_fused_cost"),
                              ("exact", "bilinear_sample"),
+                             ("exact", "exact_window_cost"),
                              ("f32", "row_gather_lerp"),
                              ("census", "row_gather_affine"))}
 
@@ -2090,6 +2169,14 @@ def main() -> int:
                                                        "bilinear_sample")}
     log(json.dumps(s_line))
 
+    x_lines = exact_cost_lines(torch, card)
+    for ln in x_lines.values():
+        ln["launches"] = launches["exact_window_cost"]
+        ln["main_path_ms_per_launch"] = per_launch_ms("exact",
+                                                      "exact_window_cost")
+        log(json.dumps(ln))
+    x_line = x_lines["dtu_fast"]
+
     # The lerp gather in its three modes, at the shapes of the kernel phase.
     # Bound: each input read once (x, 4 B per position; the source, 4 B per
     # word) and each output written once (4 B per position and output
@@ -2224,6 +2311,18 @@ def main() -> int:
          "launches": launches["bilinear_sample"],
          "max_abs_err": max_err_sample, "ms": s_ms_k, "plain_ms": s_plain,
          "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib},
+        {"name": "exact_window_cost", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/exact_cost.cu",
+         "replaces": "port-only: no Pallas counterpart; the JAX package's "
+                     "XLA offset scan (gipuma_tpu/ops/cost.py:146-215)",
+         "launches": launches["exact_window_cost"],
+         "max_abs_err": max(ln["max_abs_err"] for ln in x_lines.values()),
+         "ms": x_line["ms"], "plain_ms": x_line["plain_ms"],
+         "bound_ms": x_line["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "shapes": {k: {f: ln[f] for f in (
+             "shape", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             for k, ln in x_lines.items()}},
         # The f32 mode, the one a library call computes; every mode's
         # numbers are in "modes" (and in the row_gather_lerp lines above).
         {"name": "row_gather_lerp", "route": "cuda",

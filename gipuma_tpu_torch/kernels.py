@@ -37,6 +37,7 @@ SOURCES = {
     "rowgather_lerp": "rowgather_lerp.cu",
     "rowgather_affine": "rowgather_affine.cu",
     "permute2d": "permute2d.cu",
+    "exact_cost": "exact_cost.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,7 +45,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # their plain versions, which round every product and sum on its own, so
 # they are built without FMA contraction.  The fused cost is held to 1e-3:
 # it rounds its sample positions explicitly (__fmul_rn / __fadd_rn) and
-# lets the rest of its arithmetic contract.
+# lets the rest of its arithmetic contract.  The exact cost's window
+# epilogue rounds every product and sum as its plain version does and
+# differs from it only in the order of the window sum, so it is built
+# without FMA contraction too.
 SOURCE_FLAGS = {
     "rowgather": ["-fmad=false"],
     "sdg_fused": ["-fmad=true"],
@@ -52,11 +56,12 @@ SOURCE_FLAGS = {
     "rowgather_lerp": ["-fmad=false"],
     "rowgather_affine": ["-fmad=false"],
     "permute2d": ["-fmad=false"],
+    "exact_cost": ["-fmad=false"],
 }
 
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
           "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
-          "permute2d": 0}
+          "permute2d": 0, "exact_window_cost": 0}
 bytes_moved = {"row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -11,18 +11,25 @@ Layout of one evaluation: for each source view, the warped positions of
 all K candidates at all O window offsets are computed at once and sampled
 by ONE launch of the bilinear sampler (ops/sampling.py, kernel 3) from the
 view's [3C, H, W] (image, gx, gy) channels; the window terms are then
-summed over the offset axis.  The JAX package scans the offsets and adds
-the terms one at a time (dx-even offsets first); the vectorised sum rounds
-in another order (the tests hold costs to 1e-4 abs).  Views run one after
-another, so one view's [K, O, H, W2] intermediates are live at a time.
+summed over the offset axis.  On a CUDA tensor the PM window sum is one
+launch of ``csrc/exact_cost.cu`` per (view, candidate chunk), written in
+place into the [V, K, H, W2] result; it adds the terms one at a time in
+the JAX package's order (dx-even offsets first).  On a CPU tensor (and
+for CENSUS everywhere) the torch expression runs instead, summing over
+the offset axis at once: it rounds in another order (the tests hold costs
+to 1e-4 abs).  Views run one after another, so one view's [K, O, H, W2]
+intermediates are live at a time.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import MAXCOST, AlgorithmParams, CostCombination, MatchingAlgorithm
 from ..geometry import transforms as T
 from . import checkerboard as cb
@@ -163,6 +170,150 @@ def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
         yw.reshape((K * O,) + yw.shape[2:])
 
 
+def _guard(acc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Invalid-view guard (gipuma.cu:770-775): NaN or >= MAXCOST; padded
+    views (valid == 0) are always invalid."""
+    return torch.where(torch.isnan(acc) | (acc >= MAXCOST) | (valid == 0.0),
+                       MAXCOST, acc)
+
+
+def pm_reference_terms(scene: ScenePack, params: AlgorithmParams, offsets,
+                       parity: int) -> tuple:
+    """The reference side of the PM window sum, the same for every view and
+    candidate: (wgt [O, H, W2], ref [O, C, H, W2], gx, gy)."""
+    ref_win = scene.ref_img.windows(offsets, parity)         # [O, H, W2, C]
+    ref_center = scene.ref_img.shifted(0, 0, parity)         # [H, W2, C]
+    # Bilateral weight (weight_cu, gipuma.cu:186-193): reference only.
+    wgt = torch.exp(-_l1(ref_win - ref_center, -1) * (1.0 / params.gamma))
+    return (wgt, ref_win.permute(0, 3, 1, 2),
+            scene.ref_gx.windows(offsets, parity).permute(0, 3, 1, 2),
+            scene.ref_gy.windows(offsets, parity).permute(0, 3, 1, 2))
+
+
+def pm_window_cost_plain(smp: torch.Tensor, terms: tuple,
+                         params: AlgorithmParams, valid: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version of ``csrc/exact_cost.cu``: the guarded PM window sum
+    [kc, H, W2] of one view's samples smp [kc * O, 3C, H, W2] (the
+    sampler's output) against `terms` (pm_reference_terms); `valid` is the
+    view's view_valid entry."""
+    wgt, ref_win, ref_gx, ref_gy = terms
+    O, C = ref_win.shape[:2]
+    smp = smp.reshape((-1, O) + smp.shape[1:])
+    a = params.alpha
+    col = _l1(ref_win - smp[:, :, :C], 2).clamp(max=params.tau_color)
+    grad = ((_l1(ref_gx - smp[:, :, C:2 * C], 2)
+             + _l1(ref_gy - smp[:, :, 2 * C:], 2)) * 0.0625
+            ).clamp(max=params.tau_gradient)
+    return _guard((wgt * ((1.0 - a) * col + a * grad)).sum(1), valid)
+
+
+# PaddedEO -> its even and odd column planes as one contiguous
+# [2, H + 2pr, W2 + pc, C] tensor, made once per PaddedEO (per scene).
+_REF_PLANES = weakref.WeakKeyDictionary()
+
+
+def _ref_planes(eo: cb.PaddedEO) -> torch.Tensor:
+    planes = _REF_PLANES.get(eo)
+    if planes is None:
+        planes = torch.stack([eo.E, eo.O]).contiguous()
+        _REF_PLANES[eo] = planes
+    return planes
+
+
+@functools.lru_cache(maxsize=64)
+def _offset_table(offsets: tuple, dev: torch.device) -> torch.Tensor:
+    """int32 [O, 3] (dx, dy, o) in the JAX package's summation order: the
+    offsets grouped by dx parity, even first, each group in list order; o
+    is the offset's place in `offsets` (the sampler's order).  Made once
+    per (offsets, device), like _offset_axes."""
+    order = sorted(range(len(offsets)), key=lambda o: offsets[o][0] % 2)
+    return torch.tensor([(offsets[o][0], offsets[o][1], o) for o in order],
+                        dtype=torch.int32, device=dev)
+
+
+def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
+                           gx: torch.Tensor, gy: torch.Tensor,
+                           table: torch.Tensor, view_valid: torch.Tensor,
+                           v: int, out: torch.Tensor, parity: int, pr: int,
+                           pc: int, params: AlgorithmParams) -> None:
+    """Launch csrc/exact_cost.cu: out [kc, H, W2] = the guarded PM window
+    sum of view v's samples smp [kc * O, 3C, H, W2] against the reference
+    planes ref, gx, gy [2, H + 2pr, W2 + pc, C] (_ref_planes), over the
+    offsets of table [O, 3] (_offset_table).  Same contract as
+    pm_window_cost_plain; written in place, on the current stream."""
+    named = (("smp", smp), ("ref", ref), ("gx", gx), ("gy", gy),
+             ("table", table), ("view_valid", view_valid), ("out", out))
+    for name, t in named:
+        want = torch.int32 if name == "table" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"exact_window_cost: {name} must be {want}, got "
+                            f"{t.dtype}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"exact_window_cost: {name} must be contiguous")
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != smp.device:
+            raise ValueError(f"exact_window_cost: {name} must be on the "
+                             f"samples' CUDA device, got {t.device}")
+    O = table.shape[0]
+    if smp.dim() != 4 or smp.shape[1] % 3 or O < 1 or smp.shape[0] % O:
+        raise ValueError(f"exact_window_cost: samples {tuple(smp.shape)} "
+                         f"are not [kc * {O}, 3C, H, W2]")
+    kc, C, (H, W2) = smp.shape[0] // O, smp.shape[1] // 3, smp.shape[2:]
+    if ref.shape != gx.shape or ref.shape != gy.shape or ref.dim() != 4 \
+            or ref.shape[0] != 2 or ref.shape[1] != H + 2 * pr \
+            or ref.shape[2] != W2 + pc or ref.shape[3] != C:
+        raise ValueError(f"exact_window_cost: reference planes "
+                         f"{tuple(ref.shape)}, {tuple(gx.shape)}, "
+                         f"{tuple(gy.shape)} are not [2, {H + 2 * pr}, "
+                         f"{W2 + pc}, {C}]")
+    if tuple(out.shape) != (kc, H, W2) or not 0 <= v < view_valid.numel():
+        raise ValueError(f"exact_window_cost: out {tuple(out.shape)} is not "
+                         f"[{kc}, {H}, {W2}] or view {v} is out of range")
+    if kc == 0:
+        return
+    rc = _cuda_fn()(kernels.ptr(smp), kernels.ptr(ref), kernels.ptr(gx),
+                    kernels.ptr(gy), kernels.ptr(table),
+                    kernels.ptr(view_valid), kernels.ptr(out), kc, O, C, H,
+                    W2, ref.shape[1], ref.shape[2], pr, pc, parity, v,
+                    1.0 - params.alpha, params.alpha, 1.0 / params.gamma,
+                    params.tau_color, params.tau_gradient, MAXCOST,
+                    kernels.stream_ptr(smp.device))
+    kernels.check(rc, "exact_window_cost")
+    kernels.counts["exact_window_cost"] += 1
+
+
+_FN = None
+
+
+def _cuda_fn():
+    global _FN
+    if _FN is None:
+        fn = kernels.library("exact_cost").gtt_exact_window_cost
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 7 + [ci] * 11 + [cf] * 6 + [vp]
+        fn.restype = ci
+        _FN = fn
+    return _FN
+
+
+def exact_window_inputs(scene: ScenePack, offsets, dev: torch.device
+                        ) -> tuple:
+    """The kernel's reference inputs for `offsets`: the planes of ref_img,
+    ref_gx and ref_gy (_ref_planes) and the offset table (_offset_table).
+    The window must fit the reference's padding (|dx| <= pc, |dy| <= pr),
+    as PaddedEO.shifted needs."""
+    eo = scene.ref_img
+    offsets = tuple(map(tuple, offsets))
+    if max(abs(dx) for dx, _ in offsets) > eo.pc \
+            or max(abs(dy) for _, dy in offsets) > eo.pr:
+        raise ValueError(f"exact_window_cost: the window exceeds the "
+                         f"reference padding (pr {eo.pr}, pc {eo.pc})")
+    return (_ref_planes(eo), _ref_planes(scene.ref_gx),
+            _ref_planes(scene.ref_gy), _offset_table(offsets, dev))
+
+
 def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
                          parity: int, n: torch.Tensor, d: torch.Tensor
                          ) -> torch.Tensor:
@@ -170,43 +321,47 @@ def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
 
     n: [K, H, W2, 3], d: [K, H, W2] on the parity's active half-grid.
     Returns [V, K, H, W2] with invalid (NaN / overflow / padded-view)
-    entries at MAXCOST (gipuma.cu:770-775)."""
+    entries at MAXCOST (gipuma.cu:770-775).  PM on a CUDA tensor takes the
+    window-sum kernel (exact_window_cost_cuda); a CPU tensor, and CENSUS,
+    the torch expression."""
     if scene.src is None:
         raise ValueError("per_view_costs needs a full scene "
                          "(build_scene(lite=False))")
     C = scene.channels
     census = params.algorithm == MatchingAlgorithm.CENSUS
+    on_kernel = d.is_cuda and not census
     offsets = window_offsets(params)
     O = len(offsets)
     K, h, w2 = d.shape
-    ref_win = scene.ref_img.windows(offsets, parity)         # [O, H, W2, C]
-    ref_center = scene.ref_img.shifted(0, 0, parity)         # [H, W2, C]
     if census:
-        ref_center_m = ref_center.mean(-1)
+        ref_win = scene.ref_img.windows(offsets, parity)     # [O, H, W2, C]
+        ref_center_m = scene.ref_img.shifted(0, 0, parity).mean(-1)
         bit_l = _census_bits(ref_center_m, ref_win.mean(-1),
                              params.census_epsilon)          # [O, H, W2]
+    elif on_kernel:
+        ref, gx, gy, table = exact_window_inputs(scene, offsets, d.device)
     else:
-        a = params.alpha
-        # Bilateral weight (weight_cu, gipuma.cu:186-193): reference only.
-        wgt = torch.exp(-_l1(ref_win - ref_center, -1) * (1.0 / params.gamma))
-        ref_win = ref_win.permute(0, 3, 1, 2)                # [O, C, H, W2]
-        ref_gx = scene.ref_gx.windows(offsets, parity).permute(0, 3, 1, 2)
-        ref_gy = scene.ref_gy.windows(offsets, parity).permute(0, 3, 1, 2)
+        terms = pm_reference_terms(scene, params, offsets, parity)
 
     chunk = max(1, MAX_SAMPLES // max(1, O * h * w2))
     warps = [_plane_terms(scene, parity, n[k0:k0 + chunk], d[k0:k0 + chunk])
              for k0 in range(0, K, chunk)]
-    out = []
+    out = d.new_empty((scene.num_views, K, h, w2))
     for v in range(scene.num_views):
         # Census reads only the image channels; PM all 3C.
         src_v = scene.src[v, :C] if census else scene.src[v]
-        accs = []
-        for warp in warps:
+        for k0, warp in zip(range(0, K, chunk), warps):
             kc = warp.mr.shape[0]
             xw, yw = warped_coords(scene, v, warp, offsets)
             smp = bilinear_sample(src_v, xw, yw)              # [kc*O, *, H, W2]
-            smp = smp.reshape((kc, O) + smp.shape[1:])
-            if census:
+            dst = out[v, k0:k0 + kc]
+            if on_kernel:
+                exact_window_cost_cuda(smp, ref, gx, gy, table,
+                                       scene.view_valid, v, dst, parity,
+                                       scene.ref_img.pr, scene.ref_img.pc,
+                                       params)
+            elif census:
+                smp = smp.reshape((kc, O) + smp.shape[1:])
                 # Warped center intensity (censusTransform_Arma_cu:429-430).
                 u = _center(scene, v, warp)
                 src_center = bilinear_sample(src_v, u[..., 0] / u[..., 2],
@@ -214,21 +369,11 @@ def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
                 bit_r = _census_bits(src_center[:, None], smp.mean(2),
                                      params.census_epsilon)
                 acc = (bit_l[None] != bit_r).to(d.dtype).sum(1)
+                dst.copy_(_guard(acc, scene.view_valid[v]))
             else:
-                col = _l1(ref_win - smp[:, :, :C], 2).clamp(
-                    max=params.tau_color)
-                grad = ((_l1(ref_gx - smp[:, :, C:2 * C], 2)
-                         + _l1(ref_gy - smp[:, :, 2 * C:], 2)) * 0.0625
-                        ).clamp(max=params.tau_gradient)
-                acc = (wgt * ((1.0 - a) * col + a * grad)).sum(1)
-            accs.append(acc)
-        acc = torch.cat(accs)
-        # Invalid-view guard (gipuma.cu:770-775): NaN or >= MAXCOST; padded
-        # views are always invalid.
-        acc = torch.where(torch.isnan(acc) | (acc >= MAXCOST)
-                          | (scene.view_valid[v] == 0.0), MAXCOST, acc)
-        out.append(acc)
-    return torch.stack(out)
+                dst.copy_(pm_window_cost_plain(smp, terms, params,
+                                               scene.view_valid[v]))
+    return out
 
 
 def per_view_costs(scene: ScenePack, params: AlgorithmParams, parity: int,

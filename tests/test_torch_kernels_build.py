@@ -11,6 +11,9 @@ from gipuma_tpu_torch import kernels
 # Sources held bit-equal to their plain versions: no FMA contraction.
 BIT_EQUAL = ("rowgather", "sampling", "rowgather_lerp", "rowgather_affine",
              "permute2d")
+# Sources that round each product and sum as their plain versions do and
+# differ from them only in the order of a sum: no FMA contraction either.
+PLAIN_ROUNDING = ("exact_cost",)
 
 
 def test_every_source_has_flags():
@@ -33,7 +36,8 @@ def test_nvcc_command_is_complete(name, tmp_path):
     src = Path(cmd[-1])
     assert src == kernels.CSRC / kernels.SOURCES[name] and src.is_file()
     fmad = [f for f in cmd if f.startswith("-fmad=")]
-    assert fmad == (["-fmad=false"] if name in BIT_EQUAL else ["-fmad=true"])
+    no_fma = name in BIT_EQUAL + PLAIN_ROUNDING
+    assert fmad == (["-fmad=false"] if no_fma else ["-fmad=true"])
     assert cmd[1:-3] == kernels.flags(name)
 
 
@@ -48,5 +52,6 @@ def test_every_kernel_has_a_count():
     kernels.reset_counts()
     assert set(kernels.counts) == {
         "row_gather_nearest", "sdg_fused_cost", "bilinear_sample",
-        "row_gather_lerp", "row_gather_affine", "permute2d"}
+        "row_gather_lerp", "row_gather_affine", "permute2d",
+        "exact_window_cost"}
     assert all(v == 0 for v in kernels.counts.values())

@@ -7,7 +7,9 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: the nearest gather and the one-pass permutation are
 bit-equal at masked-on coordinates; the fused window cost agrees to 1e-3
 abs at covered pixels (the plain version rounds the weight and the window
-sums in another order, and the kernel contracts to FMA); the bilinear
+sums in another order, and the kernel contracts to FMA); the exact PM
+cost's window sum agrees to 1e-4 abs where finite and puts MAXCOST at the
+same places (it sums the offsets in another order); the bilinear
 sampler and the lerp and affine row gathers are bit-equal (NaN where the
 plain version gives NaN), the affine gather's rows launch also to the
 stack of its one-row launches."""
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from gipuma_tpu_torch.config import MAXCOST, AlgorithmParams
+from gipuma_tpu_torch.ops import checkerboard as tcb
+from gipuma_tpu_torch.ops import cost as tco
 from gipuma_tpu_torch.ops import permute2d as tpm
 from gipuma_tpu_torch.ops import rowgather as trg
 from gipuma_tpu_torch.ops import sampling as tsm
@@ -219,6 +223,143 @@ def test_sampler_kernel_matches_plain(cuda_device, C):
     got = tsm.bilinear_sample_cuda(src, x, y)
     assert torch.isnan(got[1, :, 2, 3]).all()
     assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
+
+
+def _exact_scene(dev, C, box, inc, h=48, w=64):
+    """An exact-path scene on the card: a slanted noise-textured plane seen
+    by 3 source views (C = 3: three distinct channels), padded to 4 views
+    (view 3 has view_valid 0), and its ground-truth depth."""
+    from gipuma_tpu_torch.models import scene as tscene
+    from gipuma_tpu_torch.utils.synthetic import plane_scene
+    images, rig, gt, _ = plane_scene(num_cams=4, h=h, w=w, focal=80.0,
+                                     plane_depth=5.0, slant=(0.2, -0.1),
+                                     texture="noise")
+    if C == 3:
+        images = [np.stack([im, 0.8 * im + 20.0, 255.0 - im], -1)
+                  .astype(np.float32) for im in images]
+    p = AlgorithmParams(box_hsize=box, box_vsize=box, window_increment=inc)
+    sc = tscene.build_scene(images, rig, [1, 2, 3], p, 3.0, 8.0, device=dev)
+    return tscene.pad_scene_views(sc, 4), p, torch.from_numpy(gt)
+
+
+def _exact_planes(sc, gt, K, seed):
+    """K planes per pixel [K, H, W, 3] / [K, H, W]: candidate 0 near the
+    true plane (depth within 1%), the others random at depths in [3, 8]."""
+    from gipuma_tpu_torch.geometry import transforms as T
+    dev = sc.rays.device
+    g = torch.Generator().manual_seed(seed)
+    h, w = gt.shape
+    n = torch.randn((K, h, w, 3), generator=g)
+    depth = torch.rand((K, h, w), generator=g) * 5.0 + 3.0
+    depth[0] = gt * (1.0 + 0.01 * torch.randn((h, w), generator=g))
+    n = T.flip_to_hemisphere(T.normalize(n.to(dev), eps=1e-20), sc.view_vec)
+    x, y = T.pixel_grid(h, w, device=dev)
+    return n, T.plane_d_at_pixel(sc.M_inv, sc.P_col4, n, x, y,
+                                 depth.to(dev))
+
+
+def _window_costs(sc, p, parity, n, d, nan_at=None):
+    """Every view's samples of the K candidates (n, d on the full grid),
+    then the kernel's and the plain version's window sums: [V, K, H, W2]
+    each.  nan_at (k, o, i, j): a NaN x coordinate planted there."""
+    offsets = tco.window_offsets(p)
+    K = n.shape[0]
+    na = torch.stack([tcb.extract(n[k], parity) for k in range(K)])
+    da = torch.stack([tcb.extract(d[k], parity) for k in range(K)])
+    warp = tco._plane_terms(sc, parity, na, da)
+    ref, gx, gy, table = tco.exact_window_inputs(sc, offsets, da.device)
+    terms = tco.pm_reference_terms(sc, p, offsets, parity)
+    got, want = [], []
+    for v in range(sc.num_views):
+        xw, yw = tco.warped_coords(sc, v, warp, offsets)
+        if nan_at is not None:
+            k, o, i, j = nan_at
+            xw[k * len(offsets) + o, i, j] = float("nan")
+        smp = tsm.bilinear_sample(sc.src[v], xw, yw)
+        out = torch.empty_like(da)
+        tco.exact_window_cost_cuda(smp, ref, gx, gy, table, sc.view_valid,
+                                   v, out, parity, sc.ref_img.pr,
+                                   sc.ref_img.pc, p)
+        got.append(out)
+        want.append(tco.pm_window_cost_plain(smp, terms, p,
+                                             sc.view_valid[v]))
+    return torch.stack(got), torch.stack(want)
+
+
+def _costs_agree(got, want):
+    bad = want >= MAXCOST
+    assert torch.equal(got >= MAXCOST, bad)
+    assert bool((got[bad] == MAXCOST).all())
+    assert (~bad).any()
+    assert float((got - want).abs()[~bad].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("box,inc", [(11, 2), (15, 2), (9, 1)])
+@pytest.mark.parametrize("C", [1, 3])
+def test_exact_window_cost_kernel_matches_plain(cuda_device, C, box, inc, K,
+                                                parity):
+    """csrc/exact_cost.cu against pm_window_cost_plain at the presets'
+    windows (O = 36 and 64, the compiled loops at C = 1) and at box 9 /
+    increment 1 (81 offsets of both dx parities, the generic loop): a NaN
+    coordinate planted in candidate K-1's window ends at MAXCOST, and the
+    padded view 3 is MAXCOST everywhere."""
+    sc, p, gt = _exact_scene(cuda_device, C, box, inc)
+    n, d = _exact_planes(sc, gt, K, seed=10 * box + K + parity)
+    got, want = _window_costs(sc, p, parity, n, d, nan_at=(K - 1, 2, 5, 7))
+    _costs_agree(got, want)
+    assert bool((got[:3, K - 1, 5, 7] == MAXCOST).all())
+    assert bool((got[3] == MAXCOST).all())
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_exact_window_cost_row_band(cuda_device, parity):
+    """A row band (rows 16..31 of 48, row_offset 16) whose reference planes
+    carry real halo rows (PaddedEO.build_row_padded), as tile sharding
+    builds it: the kernel against its plain version, and bit-equal to the
+    whole scene's kernel costs at the band's rows."""
+    sc, p, gt = _exact_scene(cuda_device, 1, 11, 2)
+    n, d = _exact_planes(sc, gt, 4, seed=5 + parity)
+    r0, hb = 16, 16
+    pr = sc.ref_img.pr
+
+    def band(eo):
+        full = torch.stack([eo.E, eo.O], 2).reshape(eo.E.shape[0], -1,
+                                                    eo.E.shape[-1])
+        full = full[pr:-pr, eo.pc:full.shape[1] - eo.pc]
+        rows = torch.arange(r0 - pr, r0 + hb + pr,
+                            device=full.device).clamp(0, full.shape[0] - 1)
+        return tcb.PaddedEO.build_row_padded(full[rows], pr, eo.pc)
+
+    rs = slice(r0, r0 + hb)
+    bs = sc._replace(ref_img=band(sc.ref_img), ref_gx=band(sc.ref_gx),
+                     ref_gy=band(sc.ref_gy), rays=sc.rays[rs],
+                     view_vec=sc.view_vec[rs], texture_ok=sc.texture_ok[rs],
+                     row_offset=torch.tensor(r0, dtype=torch.int32,
+                                             device=cuda_device))
+    got, want = _window_costs(bs, p, parity, n[:, rs], d[:, rs])
+    _costs_agree(got, want)
+    whole, _ = _window_costs(sc, p, parity, n, d)
+    assert torch.equal(got, whole[:, :, rs])
+
+
+def test_exact_window_cost_engages_on_pm_only(cuda_device):
+    """per_view_costs_batch on the card: PM launches the window-sum kernel
+    once per sampler launch, CENSUS never."""
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.config import MatchingAlgorithm
+    sc, p, gt = _exact_scene(cuda_device, 1, 11, 2)
+    n, d = _exact_planes(sc, gt, 4, seed=3)
+    na = torch.stack([tcb.extract(n[k], 0) for k in range(4)])
+    da = torch.stack([tcb.extract(d[k], 0) for k in range(4)])
+    for alg, launches in ((MatchingAlgorithm.PM, 4),
+                          (MatchingAlgorithm.CENSUS, 0)):
+        kernels.reset_counts()
+        tco.per_view_costs_batch(sc, p.replace(algorithm=alg), 0, na, da)
+        torch.cuda.synchronize()
+        assert kernels.counts["exact_window_cost"] == launches
+        assert kernels.counts["bilinear_sample"] >= 4
 
 
 def _same(got, want):
@@ -434,6 +575,10 @@ def test_scan_graph_matches_host_loop(cuda_device, monkeypatch, path):
     assert torch.equal(s_st.cost.view(torch.int32),
                        h_st.cost.view(torch.int32))
     assert s_n == h_n and any(v > 0 for v in s_n.values())
+    # The exact path sums every PM sampler launch's windows in the kernel,
+    # inside the captured graph too; the rect paths never launch it.
+    assert h_n["exact_window_cost"] == (
+        h_n["bilinear_sample"] if path == "exact" else 0)
     assert s_off == h_off
 
 
