@@ -10,6 +10,11 @@ control in the program's place on the same views (``check.control_outputs``)
 and judges that.  One JSON line per seed, then a summary line: per number
 the largest program reading (the lower reading) and the smallest control
 reading (the upper one).  It needs a card, as a run does.
+
+A cell whose mix names the folder driver takes one whole run a seed
+(``folder.reading``: every view of a scan, at the cell's own size and
+ranks) and the control on the same seed (``folder_check.control_numbers``);
+``--views`` does not apply there.
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ def readings(cell, seeds, views: int | None, device, log=print) -> dict:
     from gipuma_tpu_torch import pipeline
     from portbench import check, core, scene as scene_mod
 
+    if cell.mix.get("driver") == "folder":
+        from portbench import folder
+        return summarise(cell, [folder.reading(cell, s, device, log)
+                                for s in seeds], None, log)
     params = core.program_params(cell.config, cell.mix)
     views = views or cell.config["check"]["views"]
     lines = []
@@ -53,6 +62,12 @@ def readings(cell, seeds, views: int | None, device, log=print) -> dict:
         del outs, c_outs, scene
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
+    return summarise(cell, lines, views, log)
+
+
+def summarise(cell, lines: list, views, log) -> dict:
+    """Per number, the program's largest reading and the control's
+    smallest."""
     names = lines[0]["program"].keys()
     summary = {k: {"lower": max(x["program"][k] for x in lines),
                    "upper": min(x["control"][k] for x in lines)}

@@ -17,6 +17,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -29,6 +30,20 @@ CACHE = ROOT / ".portbench_cache"
 os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
 os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
 sys.path.insert(0, str(ROOT))
+
+
+def driver(cell):
+    """The module whose run_cell runs the cell: ``portbench.core`` unless
+    the cell's mix names a driver (``"driver": "folder"`` ->
+    ``portbench/folder.py``)."""
+    from portbench import core
+    name = cell.mix.get("driver")
+    if name is None:
+        return core
+    if not (isinstance(name, str) and name.isidentifier()
+            and (ROOT / "portbench" / f"{name}.py").is_file()):
+        raise core.ConfigError(f"the mix names no driver file: {name!r}")
+    return importlib.import_module(f"portbench.{name}")
 
 
 def main(argv=None) -> int:
@@ -55,8 +70,9 @@ def main(argv=None) -> int:
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 3
     try:
-        result = core.run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                               "cuda", T_START, log=err)
+        result = driver(cell).run_cell(cell, args.seed, args.seconds,
+                                       bool(args.trace), "cuda", T_START,
+                                       log=err)
     except core.ConfigError as e:
         err(f"portbench: {e}")
         return 2
