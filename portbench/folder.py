@@ -38,6 +38,19 @@ view to the end of the scan; the trace is read over the window they all
 cover, from the start of the last rank's last view to the end of the
 first fusion to end.
 
+Readers hook into every rank as ``core.run_cell``'s do into its one
+process: each rank calls ``install(rctx)`` (a ``RankCtx``) on every reader
+of the run that has one (the end-to-end readers of an untraced run, the
+per-layer readers of a traced one) at the end of set-up, before the
+barrier that starts the window, and calls the undo function that each
+returns after the last scan.  What a hook records goes into
+``rctx.store``, which the rank sends back with its record; the parent's
+``read(ctx)`` sees ``ctx.ranks``: per rank, in rank order, a dict of its
+``store``, its ``scans`` (each ``cli.main`` call's (start, end)
+perf_counter_ns), its ``trace_start`` (perf_counter_ns its profiler
+started; None where it did not) and ``trace_start_cost`` (ns the start
+took).  A hook that raises fails its rank, which ends the run.
+
 A rank that raises, dies or outlives its limit (``SETUP_LIMIT_S`` for
 set-up, ``SCAN_LIMIT_S`` a scan) ends the run: every rank is killed and
 ``RunFailed`` is raised, so ``run.py`` prints no result and exits non-zero.
@@ -48,6 +61,7 @@ import collections
 import importlib.util
 import math
 import os
+import pickle
 import queue as queue_mod
 import shutil
 import socket
@@ -132,6 +146,29 @@ def _load_hook(hook):
     return getattr(mod, name)
 
 
+class RankCtx:
+    """What a reader's ``install(rctx)`` gets in each rank of a folder run:
+    ``rank``, ``world``, ``device``, ``profiling`` (whether the rank's
+    profiler is on, read at each use), ``store`` (a dict of picklable
+    values the rank sends back; the parent's readers see it in
+    ``ctx.ranks``, as the module's docstring says) and ``time_calls``."""
+
+    def __init__(self, rank: int, world: int, device, state: dict):
+        self.rank, self.world, self.device = rank, world, device
+        self.store: dict = {}
+        self._state = state
+
+    @property
+    def profiling(self) -> bool:
+        return self._state["tracer"] is not None
+
+    def time_calls(self, mod, attr: str, key: str, before=None):
+        """Time each call of mod.<attr>: its (start, end) perf_counter_ns
+        go to store[key]; returns the undo function."""
+        return _time_calls(mod, attr, self.store.setdefault(key, []),
+                           before)
+
+
 def _rank_main(rank: int, world: int, port: int, job: dict, q) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
@@ -197,6 +234,15 @@ def _rank(rank: int, world: int, job: dict, q) -> dict:
     steps["warm_up"] = time.perf_counter()
     os.sync()
     steps["sync"] = time.perf_counter()
+    spans = collections.defaultdict(list)
+    state = {"tracer": None, "start": None, "start_cost": 0}
+    rctx = RankCtx(rank, world, dev, state)
+    undo = []
+    for name in job["readers"]:
+        mod = core.metric_module(name)
+        if hasattr(mod, "install"):
+            undo.append(mod.install(rctx))
+    steps["install"] = time.perf_counter()
     setup_peak = 0
     if cuda:
         torch.cuda.synchronize()
@@ -214,8 +260,6 @@ def _rank(rank: int, world: int, job: dict, q) -> dict:
         base += ["--device", "cpu"]
     if job["hook"]:
         _load_hook(job["hook"])(rank, base)
-    spans = collections.defaultdict(list)
-    state = {"tracer": None, "start": None, "start_cost": 0}
     if job["trace"]:
         last = scans * len(distributed.owned_jobs(n, rank, world)) - 1
 
@@ -241,6 +285,10 @@ def _rank(rank: int, world: int, job: dict, q) -> dict:
         spans["cli"].append((t0, time.perf_counter_ns()))
         barrier()
         ends.append(time.perf_counter())
+    for u in reversed(undo):
+        if u is not None:
+            u()
+    pickle.dumps(rctx.store)        # fails here, with a traceback, if not
     window_peak = 0
     if cuda:
         torch.cuda.synchronize()
@@ -255,13 +303,13 @@ def _rank(rank: int, world: int, job: dict, q) -> dict:
             "setup_steps": steps, "spans": dict(spans),
             "trace_start": state["start"],
             "trace_start_cost": state["start_cost"],
-            "events": events,
+            "events": events, "store": rctx.store,
             "forbidden": core.forbidden_modules(sys.modules)}
 
 
-def _time_calls(mod, attr: str, out: list, before=None) -> None:
+def _time_calls(mod, attr: str, out: list, before=None):
     """Wrap mod.<attr>: each call's (start, end) perf_counter_ns goes to
-    `out`; before() runs ahead of each call."""
+    `out`; before() runs ahead of each call.  Returns the undo function."""
     orig = getattr(mod, attr)
 
     def shim(*args, **kw):
@@ -274,6 +322,7 @@ def _time_calls(mod, attr: str, out: list, before=None) -> None:
             out.append((t0, time.perf_counter_ns()))
 
     setattr(mod, attr, shim)
+    return lambda: setattr(mod, attr, orig)
 
 
 def _spawn(job: dict, world: int, limits, log) -> list[dict]:
@@ -407,7 +456,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
            "cameras": str(SCAN_DIR / "cameras"),
            "outs": [str(SCAN_DIR / f"out{k}")
                     for k in range(int(mix.get("scans", 1)))],
-           "hook": hook}
+           "hook": hook, "readers": names}
     for k in ("images", "cameras"):
         Path(job[k]).mkdir(parents=True)
     try:
@@ -422,6 +471,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         ctx.window_start = r0["t_window"]
         ctx.setup_s = r0["t_window"] - t_start
         ctx.peak_window_bytes = max(r["window_peak"] for r in recs)
+        ctx.ranks = [{"rank": r["rank"], "store": r["store"],
+                      "scans": r["spans"]["cli"],
+                      "trace_start": r["trace_start"],
+                      "trace_start_cost": r["trace_start_cost"]}
+                     for r in recs]
         peak = max(max(r["setup_peak"], r["window_peak"]) for r in recs)
         log(f"[portbench] {cell.workload['name']} seed {seed}: set-up "
             f"{ctx.setup_s:.3f} s, {len(job['outs'])} scan(s) on {world} "
@@ -429,9 +483,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             f"(--seconds {seconds:g} does not set the work), main's exit "
             f"codes {rcs}")
         log("[portbench] set-up steps, s from the start (rank: imports, "
-            "init, render, write, warm_up, sync, barrier): " + "; ".join(
-                f"{r['rank']}: " + " ".join(f"{t - t_start:.2f}" for t in
-                                            r["setup_steps"].values())
+            "init, render, write, warm_up, sync, install, barrier): "
+            + "; ".join(f"{r['rank']}: " + " ".join(
+                f"{t - t_start:.2f}" for t in r["setup_steps"].values())
                 for r in recs))
         if trace:
             if all(r["trace_start"] is not None and r["events"] is not None

@@ -5,12 +5,17 @@ above its own numbers; each fault a scan can have, planted in every rank or
 in one, turns ``correct`` false; a rank that dies or hangs ends the run
 with every rank ended; the reference fusion agrees with the program's; the
 control fails the cell's real limits; a mix without a driver still runs
-``core.run_cell``.  The cell is read from its pending entries
-(``portbench/pending/``) laid over BENCHMARK.json."""
+``core.run_cell``; a reader added as a file hooks into every rank.  The
+cell is read from BENCHMARK.json once its entries are there, and until
+then from its pending entries (``portbench/pending/``) laid over it."""
 import importlib.util
 import json
 import math
 import multiprocessing
+import os
+import shutil
+import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -30,18 +35,23 @@ ENTRIES = ("configs", "workloads", "per_layer")
 
 
 def with_pending(bench: dict) -> dict:
-    """BENCHMARK.json's entries with the cell's pending entries added."""
+    """BENCHMARK.json's entries with the cell's pending entries that it
+    does not hold yet appended as they stand."""
     pend = load(PENDING)
-    return dict(bench, **{k: bench[k] + pend[k] for k in ENTRIES})
+    return dict(bench, **{k: bench[k] + [
+        e for e in pend[k] if e["name"] not in {o["name"] for o in bench[k]}]
+        for k in ENTRIES})
 
 
 def load_folder_cell():
-    """The cell as core.load_cell makes it once its pending entries are in
-    BENCHMARK.json."""
+    """The cell as core.load_cell makes it: from BENCHMARK.json once its
+    entries are there, until then with its pending entries appended."""
+    bench = load(ROOT / "BENCHMARK.json")
+    if WORKLOAD in {w["name"] for w in bench["workloads"]}:
+        return core.load_cell(WORKLOAD)
     with tempfile.TemporaryDirectory() as d:
         d = Path(d)
-        (d / "BENCHMARK.json").write_text(
-            json.dumps(with_pending(load(ROOT / "BENCHMARK.json"))))
+        (d / "BENCHMARK.json").write_text(json.dumps(with_pending(bench)))
         (d / "portbench").symlink_to(ROOT / "portbench")
         return core.load_cell(WORKLOAD, root=d)
 
@@ -98,13 +108,14 @@ def test_sound_run_is_correct(cell):
 
 def test_traced_run_reads_the_layers(cell):
     """On the CPU a traced run has the host-side layer readings (no device
-    trace)."""
+    trace), those of the readers' hooks in the ranks among them."""
     res = run(cell, seed=8, trace=True)
     m = res["metrics"]
     assert {"fusion_s_per_scan", "write_s_per_view",
             "rank_wait_share"} <= set(m)
     assert m["fusion_s_per_scan"]["value"] > 0
     assert m["write_s_per_view"]["value"] > 0
+    assert m["readback_s_per_scan"]["value"] > 0
     # 9 views on 2 ranks: 5 and 4, so about 0.1 of the slower rank's wall.
     assert 0.0 <= m["rank_wait_share"]["value"] < 0.5
     assert "breakdown" not in res
@@ -261,16 +272,18 @@ def test_runner_dispatches_on_the_mix():
 
 def test_pending_entries_keep_to_the_contract():
     """The pending entries name one 4-card cell, its configuration and its
-    per-layer metrics, each new to BENCHMARK.json, with readers, and
-    metrics that move an end-to-end metric the cell reports."""
+    per-layer metrics, each new to BENCHMARK.json or the same there byte
+    for byte, with readers, and metrics that move an end-to-end metric the
+    cell reports."""
     import re
     bench = load(ROOT / "BENCHMARK.json")
     pend = load(PENDING)
     name = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
     for k in ENTRIES:
-        old = {e["name"] for e in bench[k]}
+        old = {e["name"]: json.dumps(e) for e in bench[k]}
         for e in pend[k]:
-            assert name.match(e["name"]) and e["name"] not in old, e
+            assert name.match(e["name"]), e
+            assert old.get(e["name"], json.dumps(e)) == json.dumps(e), e
     assert [w["name"] for w in pend["workloads"]] == [WORKLOAD]
     assert pend["workloads"][0]["chips"] == 4
     cell = load_folder_cell()
@@ -280,3 +293,115 @@ def test_pending_entries_keep_to_the_contract():
         assert m["moves"] in e2e and m["workloads"] == [WORKLOAD]
         assert hasattr(core.metric_module(m["name"]), "read")
     assert len(json.dumps(with_pending(bench))) < 64 * 1024
+
+
+# A reader that counts the calls of the program's read_dmb in each rank of
+# each scan, and reads the count only where every rank saw the same.
+COUNT_READER = '''
+def install(rctx):
+    from gipuma_tpu_torch.io import dmb
+    return rctx.time_calls(dmb, "read_dmb", "calls")
+
+
+def read(ctx):
+    counts = {sum(lo <= a and b <= hi for a, b in r["store"]["calls"])
+              for r in ctx.ranks for lo, hi in r["scans"]}
+    if len(ctx.ranks) != 2 or len(counts) != 1:
+        raise ValueError(f"read_dmb calls by rank and scan: {counts}")
+    return counts.pop()
+'''
+
+# A reader whose hook raises in rank 1.
+RAISING_READER = '''
+def install(rctx):
+    if rctx.rank == 1:
+        raise RuntimeError("a reader's hook failed in rank 1")
+
+
+def read(ctx):
+    return 1.0
+'''
+
+# Run in a copy of the benchmark: the tiny cell, traced, on two ranks; the
+# result line, or the failure with the children left.
+RUN_IN_COPY = '''
+import json, multiprocessing, sys
+sys.path.insert(0, "portbench/tests")
+import test_portbench_folder as t
+from portbench import folder
+try:
+    res = t.run(t.tiny_folder_cell(), seed=11, trace=True)
+except folder.RunFailed as e:
+    res = {"failed_with": str(e),
+           "children": len(multiprocessing.active_children()),
+           "scan_dir": folder.SCAN_DIR.exists()}
+print(json.dumps(res, default=str))
+'''
+
+
+def copy_with_cell(d: Path, readers: dict | None = None) -> Path:
+    """A copy of the benchmark as the change that adds the cell leaves it:
+    the pending entries appended to BENCHMARK.json as they stand, and for
+    each of `readers` (name -> source) one reader file and its per-layer
+    entry; the program linked in."""
+    shutil.copytree(ROOT / "portbench", d / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = with_pending(load(ROOT / "BENCHMARK.json"))
+    for name, src in (readers or {}).items():
+        (d / "portbench" / "metrics" / f"{name}.py").write_text(src)
+        bench["per_layer"].append({
+            "name": name, "unit": "calls", "better": "lower",
+            "source": "program_counter", "layer": "io",
+            "moves": "mpix_per_s", "workloads": [WORKLOAD]})
+    (d / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    (d / "gipuma_tpu_torch").symlink_to(ROOT / "gipuma_tpu_torch")
+    return d
+
+
+def run_in_copy(d: Path, timeout: float = 600) -> dict:
+    r = subprocess.run([sys.executable, "-c", RUN_IN_COPY], cwd=d,
+                       capture_output=True, text=True, timeout=timeout,
+                       env=dict(os.environ, PYTHONPATH=""))
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_a_reader_added_as_a_file_hooks_into_every_rank(tmp_path):
+    """One new reader file and its entry, nothing edited: its hook counts
+    the program's read_dmb in both ranks, 2 x 9 calls a scan (each rank
+    reads every view's disp.dmb and normals.dmb back before fusion)."""
+    res = run_in_copy(copy_with_cell(tmp_path, {"read_dmb_calls":
+                                                COUNT_READER}))
+    assert (res["views"], res["failed"]) == (9, 0)
+    assert res["metrics"]["read_dmb_calls"]["value"] == 18
+    assert res["metrics"]["readback_s_per_scan"]["value"] > 0
+
+
+def test_a_hook_that_raises_ends_the_run(tmp_path):
+    """A reader's hook that raises in rank 1 ends the run as a failed rank
+    does: no result, no rank left, the scan's folder removed."""
+    res = run_in_copy(copy_with_cell(tmp_path,
+                                     {"hook_raises": RAISING_READER}))
+    assert "a reader's hook failed in rank 1" in res["failed_with"]
+    assert res["children"] == 0 and not res["scan_dir"]
+
+
+def test_the_tests_pass_with_the_pending_entries_appended(tmp_path):
+    """The tests that read BENCHMARK.json's lists (this file, this test
+    left out, and the files' tests) in a copy whose BENCHMARK.json holds
+    the pending entries appended as they stand.  The check's and the
+    arithmetic's tests name the exact cells and read nothing the append
+    changes."""
+    d = copy_with_cell(tmp_path)
+    bench = load(d / "BENCHMARK.json")
+    assert WORKLOAD in {w["name"] for w in bench["workloads"]}
+    assert with_pending(bench) == bench
+    here = "portbench/tests/test_portbench_folder.py"
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "-p", "no:cacheprovider", "-q",
+         here, "portbench/tests/test_portbench_files.py", "--deselect",
+         f"{here}::test_the_tests_pass_with_the_pending_entries_appended"],
+        cwd=d, capture_output=True, text=True, timeout=1200,
+        env=dict(os.environ, PYTHONPATH=""))
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-2000:]
+    assert " passed" in r.stdout.splitlines()[-1]
