@@ -138,7 +138,8 @@ Phases, in order (any failure exits non-zero before the last line):
    the census path's rows launches, beside its path-level bound per
    launch, counted by its wrapper from each launch's shape; the exact PM
    window sum at both benchmark cells' unit shapes, held to 1e-4 of its
-   plain version there: exact_cost_lines); each path's
+   plain version there: exact_cost_lines; its warp prologue at the same
+   units, held bit-equal to warped_coords: exact_warp_lines); each path's
    line also holds its peak allocated memory and, for the scan paths, the
    CUDA graph's capture seconds and replays per level; a `cull_downscale`
    line beside the pyramid and a `scan_vs_host` line per scan path;
@@ -196,10 +197,12 @@ KERNEL_SYMBOLS = {"row_gather_nearest": "row_gather_nearest_kernel",
                   "row_gather_lerp": "row_gather_lerp_kernel",
                   "row_gather_affine": "row_gather_affine_kernel",
                   "permute2d": "permute2d_kernel",
-                  "exact_window_cost": "exact_window_cost_kernel"}
+                  "exact_window_cost": "exact_window_cost_kernel",
+                  "exact_warp_coords": "exact_warp_coords_kernel"}
 # The kernels each path runs.
 PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
-                "exact": ("bilinear_sample", "exact_window_cost"),
+                "exact": ("bilinear_sample", "exact_window_cost",
+                          "exact_warp_coords"),
                 "pyramid": ("permute2d", "sdg_fused_cost"),
                 "census_exact": ("bilinear_sample",),
                 "census": ("permute2d", "row_gather_affine"),
@@ -211,7 +214,8 @@ PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "cull_downscale": ("permute2d", "sdg_fused_cost"),
                 "rect_scan": ("permute2d", "sdg_fused_cost"),
                 "pyramid_scan": ("permute2d", "sdg_fused_cost"),
-                "exact_scan": ("bilinear_sample", "exact_window_cost")}
+                "exact_scan": ("bilinear_sample", "exact_window_cost",
+                               "exact_warp_coords")}
 # level_dispatch="scan" paths -> the host-loop path each must equal.
 SCAN_PATHS = {"rect_scan": "rect", "pyramid_scan": "pyramid",
               "exact_scan": "exact"}
@@ -843,7 +847,8 @@ def plane_dist(np, pts, plane) -> float:
 
 # Batch runs (a) and (b): the CLI's extra flags and the kernels each must
 # launch.
-BATCH_RUNS = {"a": ([], ("bilinear_sample", "exact_window_cost")),
+BATCH_RUNS = {"a": ([], ("bilinear_sample", "exact_window_cost",
+                         "exact_warp_coords")),
               "b": (["--cost_path", "rect", "--pyramid_levels", "3",
                      "--pyramid_fine_iterations", "1"],
                     ("permute2d", "sdg_fused_cost"))}
@@ -1086,10 +1091,13 @@ def batch_phase(torch, np, device, card, folder: dict):
 
 # Kernels each sub-run of phase (i) must launch on every rank.
 DIST_KERNELS = {"i1": ("permute2d", "sdg_fused_cost"),
-                "i2": ("bilinear_sample", "exact_window_cost"),
+                "i2": ("bilinear_sample", "exact_window_cost",
+                       "exact_warp_coords"),
                 "i3": ("permute2d", "sdg_fused_cost"),
-                "i4": ("bilinear_sample", "exact_window_cost"),
-                "i5": ("bilinear_sample", "exact_window_cost")}
+                "i4": ("bilinear_sample", "exact_window_cost",
+                       "exact_warp_coords"),
+                "i5": ("bilinear_sample", "exact_window_cost",
+                       "exact_warp_coords")}
 # Band-boundary rows of the 2-tile runs at 480 rows: 8 rows each side of
 # the stitch.
 SEAM_ROWS = slice(232, 248)
@@ -1446,6 +1454,88 @@ def exact_cost_lines(torch, card) -> dict:
             "bound_by": "bytes", "max_abs_err": err,
             "mean_cost": float(want.mean())}
         del smp, terms, want, out
+        torch.cuda.empty_cache()
+    return lines
+
+
+def exact_warp_lines(torch, card) -> dict:
+    """The exact PM cost's warp prologue (csrc/exact_cost.cu,
+    exact_warp_coords_kernel) at each EXACT_COST_SHAPES unit, beside its
+    plain version warped_coords and its bound: a rig whose source camera
+    sits a tenth of the depth to the side, turned 2 degrees, and planes
+    near a fronto-parallel one 4-5 units away.  Held bit-equal to
+    warped_coords; device time by CUDA-graph replay.  Bound: the
+    positions written once (8 B each) and the plane and view terms read
+    once, at HBM rate."""
+    import math
+    from gipuma_tpu_torch.config import AlgorithmParams
+    from gipuma_tpu_torch.geometry import transforms as T
+    from gipuma_tpu_torch.ops import cost as ec
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    lines = {}
+    for cell, (K, box, inc, H, W) in EXACT_COST_SHAPES.items():
+        p = AlgorithmParams(box_hsize=box, box_vsize=box,
+                            window_increment=inc)
+        offs = ec.window_offsets(p)
+        O = len(offs)
+        f = 1.2 * W
+        k1 = torch.tensor([[f, 0.0, W / 2], [0.0, f, H / 2],
+                           [0.0, 0.0, 1.0]], dtype=torch.float64)
+        a = math.radians(2.0)
+        rot = torch.tensor([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                            [-math.sin(a), 0.0, math.cos(a)]],
+                           dtype=torch.float64)
+        kinv = torch.linalg.inv(k1)
+        y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                              torch.arange(W, dtype=torch.float32),
+                              indexing="ij")
+        kinv32 = kinv.float().to(dev)
+        scene = ec.ScenePack(**dict.fromkeys(ec.ScenePack._fields))._replace(
+            A=(k1 @ rot).float()[None].to(dev),
+            b=(k1 @ torch.tensor([0.45, 0.0, 0.0], dtype=torch.float64)
+               ).float()[None].to(dev),
+            k1inv_c0=kinv32[:, 0].contiguous(),
+            k1inv_c1=kinv32[:, 1].contiguous(),
+            rays=T.pixel_rays(kinv32, x.to(dev), y.to(dev)))
+        n = torch.randn((K, H, W // 2, 3), generator=g, device=dev) * 0.05
+        n[..., 2] = -1.0
+        n = n / n.norm(dim=-1, keepdim=True)
+        d = 4.0 + torch.rand((K, H, W // 2), generator=g, device=dev)
+        warp = ec._plane_terms(scene, 0, n, d)
+        ar, ac0, ac1 = ec.view_warp_terms(scene, 0, warp.rays)
+        table = ec._warp_table(tuple(map(tuple, offs)), dev)
+        xw = torch.empty((K * O, H, W // 2), device=dev)
+        yw = torch.empty_like(xw)
+
+        def kern():
+            ec.exact_warp_coords_cuda(ar, ac0, ac1, scene.b[0], warp.mr,
+                                      warp.mc0, warp.mc1, table, xw, yw)
+
+        kern()
+        want = ec.warped_coords(scene, 0, warp, offs)
+        if not (bool(torch.isfinite(want[0]).all())
+                and bool(torch.isfinite(want[1]).all())):
+            fail(f"exact_warp_coords ({cell}): non-finite positions")
+        for got, w, what in ((xw, want[0], "xw"), (yw, want[1], "yw")):
+            if not torch.equal(got.view(torch.int32), w.view(torch.int32)):
+                fail(f"exact_warp_coords ({cell}): {what} differs from "
+                     f"warped_coords at {int((got != w).sum())} positions")
+        nbytes = 4 * (xw.numel() + yw.numel() + 3 * warp.mr.numel()
+                      + ar.numel() + 9)
+        ms = graph_ms(kern, reps=10)
+        bound = nbytes / HBM_BPS * 1e3
+        lines[cell] = {
+            "kernel": "exact_warp_coords", "card": card,
+            "shape": f"K={K} x {O} offsets (box {box}/inc {inc}), "
+                     f"{H}x{W // 2} half-grid",
+            "ms": ms,
+            "plain_ms": graph_ms(lambda: ec.warped_coords(
+                scene, 0, warp, offs), reps=3, rounds=3),
+            "library_ms": None, "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / ms, "bit_equal": True,
+            "x_range": [float(xw.min()), float(xw.max())]}
+        del warp, want, xw, yw, ar, n, d
         torch.cuda.empty_cache()
     return lines
 
@@ -2027,6 +2117,7 @@ def main() -> int:
                              ("rect", "sdg_fused_cost"),
                              ("exact", "bilinear_sample"),
                              ("exact", "exact_window_cost"),
+                             ("exact", "exact_warp_coords"),
                              ("f32", "row_gather_lerp"),
                              ("census", "row_gather_affine"))}
 
@@ -2176,6 +2267,13 @@ def main() -> int:
                                                       "exact_window_cost")
         log(json.dumps(ln))
     x_line = x_lines["dtu_fast"]
+    w_lines = exact_warp_lines(torch, card)
+    for ln in w_lines.values():
+        ln["launches"] = launches["exact_warp_coords"]
+        ln["main_path_ms_per_launch"] = per_launch_ms("exact",
+                                                      "exact_warp_coords")
+        log(json.dumps(ln))
+    w_line = w_lines["dtu_fast"]
 
     # The lerp gather in its three modes, at the shapes of the kernel phase.
     # Bound: each input read once (x, 4 B per position; the source, 4 B per
@@ -2323,6 +2421,18 @@ def main() -> int:
          "shapes": {k: {f: ln[f] for f in (
              "shape", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for k, ln in x_lines.items()}},
+        {"name": "exact_warp_coords", "route": "cuda",
+         "source": "gipuma_tpu_torch/csrc/exact_cost.cu",
+         "replaces": "port-only: no Pallas counterpart; the position "
+                     "arithmetic of the JAX package's XLA offset scan "
+                     "(gipuma_tpu/ops/cost.py:146-215)",
+         "launches": launches["exact_warp_coords"], "max_abs_err": 0.0,
+         "ms": w_line["ms"], "plain_ms": w_line["plain_ms"],
+         "bound_ms": w_line["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "shapes": {k: {f: ln[f] for f in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_share")}
+             for k, ln in w_lines.items()}},
         # The f32 mode, the one a library call computes; every mode's
         # numbers are in "modes" (and in the row_gather_lerp lines above).
         {"name": "row_gather_lerp", "route": "cuda",

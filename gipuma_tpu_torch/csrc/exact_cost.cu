@@ -1,6 +1,52 @@
-// The exact PM cost's window epilogue for Hopper (sm_90a): samples ->
-// bilaterally weighted, truncated window sum -> per-view cost, in one
-// launch.
+// The exact PM cost's two hand-written kernels for Hopper (sm_90a), one
+// launch each per (source view, candidate chunk) on either side of the
+// bilinear sampler (csrc/sampling.cu):
+//
+//   exact_warp_coords_kernel: plane terms -> the sampler's positions at
+//     every window offset (the warp prologue);
+//   exact_window_cost_kernel: the sampler's output -> bilaterally
+//     weighted, truncated window sum -> per-view cost (the epilogue).
+//
+// Both are built without FMA contraction (-fmad=false) and round every
+// product, sum and quotient on its own.
+//
+// ---- The warp prologue ----------------------------------------------------
+//
+// Replaces the torch expression that builds the sampler's positions
+// (gipuma_tpu_torch/ops/cost.py, warped_coords and _center: 14 launches over
+// [K, O, H, W2] planes and about a dozen smaller ones) and computes the
+// position arithmetic of the JAX package's offset scan (gipuma_tpu/ops/
+// cost.py:146-215, an XLA loop, no Pallas kernel).  The warp of pixel r + (dx,
+// dy) under plane m = n / d is affine in the offset before
+// dehomogenization.  For each candidate k, active pixel n = (i, j) and
+// offset (dx, dy) of the sampled list (its order, o):
+//
+//   u_c  = ar[n, c] - b_c * mr[k, n]       A r - b (m . r)
+//   ax_c = ac0[c]   - b_c * mc0[k, n]      A c0 - b (m . c0), c0 = K1inv[:, 0]
+//   ay_c = ac1[c]   - b_c * mc1[k, n]      A c1 - b (m . c1), c1 = K1inv[:, 1]
+//   p_c  = (u_c + dx * ax_c) + dy * ay_c         c = 0, 1, 2
+//   xw[k * O + o, i, j] = p_0 / p_2,  yw[k * O + o, i, j] = p_1 / p_2
+//
+// ar = A r ([H, W2, 3]), ac0 = A c0, ac1 = A c1 and b ([3] each) are view
+// v's and stay in torch (a few small launches per view, not per unit);
+// mr, mc0, mc1 [kc, H, W2] are the candidates' plane terms.  Every
+// operation is the torch expression's, in its order and rounded on its
+// own, so the positions are bit-equal to warped_coords': NaN and inf pass
+// through (a degenerate plane, d = 0, gives inf or NaN positions, which
+// the sampler and the window sum turn into MAXCOST).
+//
+// Bound: bytes.  Per position 8 B out (xw and yw); the plane terms are
+// 1/O of that and the offset table is read at one address by a whole
+// warp.  Design: one thread per (k, n), neighbouring n in neighbouring
+// threads; a thread computes its candidate's u, ax, ay once, in registers,
+// and loops over the O offsets, so each offset's stores of a warp are one
+// coalesced line of xw and one of yw.  The offset loop is compiled for
+// the presets' windows (O = 36: box 11, O = 64: box 15, increment 2) and
+// once for any other O.  Capture-safe: every per-view value is read from
+// device memory, nothing is allocated, the launch is on the caller's
+// stream.
+//
+// ---- The window epilogue --------------------------------------------------
 //
 // Replaces the torch expression that follows the sampler on the exact cost
 // path (gipuma_tpu_torch/ops/cost.py, pm_window_cost_plain: about 25
@@ -132,6 +178,60 @@ int launch(const void* smp, const void* ref, const void* gx, const void* gy,
   return (int)cudaGetLastError();
 }
 
+// table: [O, 2] f32 (dx, dy) in the sampled list's order.
+template <int kO>
+__global__ void __launch_bounds__(256) exact_warp_coords_kernel(
+    const float* __restrict__ ar, const float* __restrict__ ac0,
+    const float* __restrict__ ac1, const float* __restrict__ b,
+    const float* __restrict__ mr, const float* __restrict__ mc0,
+    const float* __restrict__ mc1, const float* __restrict__ table,
+    float* __restrict__ xw, float* __restrict__ yw, const int kc,
+    const int O_, const long long N) {
+  const int O = kO > 0 ? kO : O_;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)kc * N) return;
+  const long long k = idx / N;
+  const long long n = idx - k * N;
+  const float tr = __ldg(mr + idx), t0 = __ldg(mc0 + idx),
+              t1 = __ldg(mc1 + idx);
+  float u[3], ax[3], ay[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float bc = __ldg(b + c);
+    u[c] = __fsub_rn(__ldg(ar + 3 * n + c), __fmul_rn(bc, tr));
+    ax[c] = __fsub_rn(__ldg(ac0 + c), __fmul_rn(bc, t0));
+    ay[c] = __fsub_rn(__ldg(ac1 + c), __fmul_rn(bc, t1));
+  }
+  float* xo = xw + (size_t)k * O * N + n;
+  float* yo = yw + (size_t)k * O * N + n;
+#pragma unroll 8
+  for (int o = 0; o < O; ++o) {
+    const float dx = __ldg(table + 2 * o);
+    const float dy = __ldg(table + 2 * o + 1);
+    float p[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      p[c] = __fadd_rn(__fadd_rn(u[c], __fmul_rn(dx, ax[c])),
+                       __fmul_rn(dy, ay[c]));
+    xo[(size_t)o * N] = __fdiv_rn(p[0], p[2]);
+    yo[(size_t)o * N] = __fdiv_rn(p[1], p[2]);
+  }
+}
+
+template <int kO>
+int launch_warp(const void* ar, const void* ac0, const void* ac1,
+                const void* b, const void* mr, const void* mc0,
+                const void* mc1, const void* table, void* xw, void* yw,
+                int kc, int O, long long N, long long blocks,
+                cudaStream_t stream) {
+  exact_warp_coords_kernel<kO><<<(unsigned)blocks, 256, 0, stream>>>(
+      (const float*)ar, (const float*)ac0, (const float*)ac1,
+      (const float*)b, (const float*)mr, (const float*)mc0,
+      (const float*)mc1, (const float*)table, (float*)xw, (float*)yw, kc, O,
+      N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gtt_exact_window_cost(
@@ -155,4 +255,24 @@ extern "C" int gtt_exact_window_cost(
     return launch<64, 1>(smp, ref, gx, gy, table, view_valid, out, p, blocks,
                          s);
   return launch<0, 0>(smp, ref, gx, gy, table, view_valid, out, p, blocks, s);
+}
+
+extern "C" int gtt_exact_warp_coords(
+    const void* ar, const void* ac0, const void* ac1, const void* b,
+    const void* mr, const void* mc0, const void* mc1, const void* table,
+    void* xw, void* yw, int kc, int O, int H, int W2, void* stream) {
+  const long long N = (long long)H * W2;
+  const long long total = (long long)kc * N;
+  if (total <= 0 || O <= 0) return 0;
+  const long long blocks = (total + 255) / 256;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (O == 36)
+    return launch_warp<36>(ar, ac0, ac1, b, mr, mc0, mc1, table, xw, yw, kc,
+                           O, N, blocks, s);
+  if (O == 64)
+    return launch_warp<64>(ar, ac0, ac1, b, mr, mc0, mc1, table, xw, yw, kc,
+                           O, N, blocks, s);
+  return launch_warp<0>(ar, ac0, ac1, b, mr, mc0, mc1, table, xw, yw, kc, O,
+                        N, blocks, s);
 }

@@ -45,10 +45,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # their plain versions, which round every product and sum on its own, so
 # they are built without FMA contraction.  The fused cost is held to 1e-3:
 # it rounds its sample positions explicitly (__fmul_rn / __fadd_rn) and
-# lets the rest of its arithmetic contract.  The exact cost's window
-# epilogue rounds every product and sum as its plain version does and
-# differs from it only in the order of the window sum, so it is built
-# without FMA contraction too.
+# lets the rest of its arithmetic contract.  The exact cost's two kernels
+# round every product, sum and quotient as their plain versions do (the
+# warp prologue is bit-equal to its plain version; the window epilogue
+# differs from its plain version only in the order of the window sum), so
+# that library is built without FMA contraction too.
 SOURCE_FLAGS = {
     "rowgather": ["-fmad=false"],
     "sdg_fused": ["-fmad=true"],
@@ -61,7 +62,7 @@ SOURCE_FLAGS = {
 
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
           "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
-          "permute2d": 0, "exact_window_cost": 0}
+          "permute2d": 0, "exact_window_cost": 0, "exact_warp_coords": 0}
 bytes_moved = {"row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}

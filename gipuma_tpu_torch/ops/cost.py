@@ -11,14 +11,17 @@ Layout of one evaluation: for each source view, the warped positions of
 all K candidates at all O window offsets are computed at once and sampled
 by ONE launch of the bilinear sampler (ops/sampling.py, kernel 3) from the
 view's [3C, H, W] (image, gx, gy) channels; the window terms are then
-summed over the offset axis.  On a CUDA tensor the PM window sum is one
-launch of ``csrc/exact_cost.cu`` per (view, candidate chunk), written in
-place into the [V, K, H, W2] result; it adds the terms one at a time in
-the JAX package's order (dx-even offsets first).  On a CPU tensor (and
-for CENSUS everywhere) the torch expression runs instead, summing over
-the offset axis at once: it rounds in another order (the tests hold costs
-to 1e-4 abs).  Views run one after another, so one view's [K, O, H, W2]
-intermediates are live at a time.
+summed over the offset axis.  On a CUDA tensor PM runs the two kernels of
+``csrc/exact_cost.cu`` around the sampler, one launch each per (view,
+candidate chunk): the warp prologue writes the positions
+(exact_warp_coords_cuda, bit-equal to warped_coords), and the window sum
+is written in place into the [V, K, H, W2] result; it adds the terms one
+at a time in the JAX package's order (dx-even offsets first).  On a CPU
+tensor (and for CENSUS everywhere) the torch expressions run instead,
+warped_coords and a window sum over the offset axis at once: the latter
+rounds in another order (the tests hold costs to 1e-4 abs).  Views run
+one after another, so one view's [K, O, H, W2] intermediates are live at
+a time.
 """
 from __future__ import annotations
 
@@ -170,6 +173,82 @@ def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
         yw.reshape((K * O,) + yw.shape[2:])
 
 
+@functools.lru_cache(maxsize=64)
+def _warp_table(offsets: tuple, dev: torch.device) -> torch.Tensor:
+    """f32 [O, 2] (dx, dy) in the sampled list's order: the warp kernel's
+    offsets, made once per (offsets, device), like _offset_axes."""
+    return torch.tensor(offsets, dtype=torch.float32, device=dev)
+
+
+def view_warp_terms(scene: ScenePack, v: int, rays: torch.Tensor) -> tuple:
+    """View v's share of warped_coords, the same for every candidate: (A r
+    [H, W2, 3], A K1inv[:, 0], A K1inv[:, 1]), each as warped_coords
+    computes it."""
+    Av = scene.A[v]
+    return (T._matvec(Av, rays), T._matvec(Av, scene.k1inv_c0),
+            T._matvec(Av, scene.k1inv_c1))
+
+
+def _checked(what: str, named, ints=()) -> None:
+    """Refuse a kernel argument by name: f32 (int32 for `ints`) and
+    contiguous."""
+    for name, t in named:
+        want = torch.int32 if name in ints else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _on_card(what: str, named) -> None:
+    """Refuse a kernel argument by name that is not on the first one's
+    CUDA device."""
+    first, dev = named[0][0], named[0][1].device
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: {name} must be on the {first}'s CUDA "
+                             f"device, got {t.device}")
+
+
+def exact_warp_coords_cuda(ar: torch.Tensor, ac0: torch.Tensor,
+                           ac1: torch.Tensor, b: torch.Tensor,
+                           mr: torch.Tensor, mc0: torch.Tensor,
+                           mc1: torch.Tensor, table: torch.Tensor,
+                           xw: torch.Tensor, yw: torch.Tensor) -> None:
+    """Launch csrc/exact_cost.cu's warp prologue: xw, yw [kc * O, H, W2]
+    (candidate-major) = warped_coords of one view, from its terms ar [H,
+    W2, 3], ac0, ac1 (view_warp_terms) and b [3] (scene.b[v]), the
+    candidates' plane terms mr, mc0, mc1 [kc, H, W2] (_plane_terms) and
+    the offsets table [O, 2] (_warp_table).  Bit-equal to warped_coords;
+    written in place, on the current stream."""
+    what = "exact_warp_coords"
+    named = (("ar", ar), ("ac0", ac0), ("ac1", ac1), ("b", b), ("mr", mr),
+             ("mc0", mc0), ("mc1", mc1), ("table", table), ("xw", xw),
+             ("yw", yw))
+    _checked(what, named)
+    if mr.dim() != 3:
+        raise ValueError(f"{what}: mr {tuple(mr.shape)} is not [kc, H, W2]")
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError(f"{what}: table {tuple(table.shape)} is not [O, 2] "
+                         f"with O >= 1")
+    (kc, H, W2), O = mr.shape, table.shape[0]
+    want = {"ar": (H, W2, 3), "ac0": (3,), "ac1": (3,), "b": (3,),
+            "mr": (kc, H, W2), "mc0": (kc, H, W2), "mc1": (kc, H, W2),
+            "table": (O, 2), "xw": (kc * O, H, W2), "yw": (kc * O, H, W2)}
+    for name, t in named:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
+                             f"{list(want[name])}")
+    _on_card(what, named)
+    if kc == 0:
+        return
+    rc = _warp_fn()(*(kernels.ptr(t) for _, t in named), kc, O, H, W2,
+                    kernels.stream_ptr(mr.device))
+    kernels.check(rc, what)
+    kernels.counts["exact_warp_coords"] += 1
+
+
 def _guard(acc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Invalid-view guard (gipuma.cu:770-775): NaN or >= MAXCOST; padded
     views (valid == 0) are always invalid."""
@@ -244,18 +323,7 @@ def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
     pm_window_cost_plain; written in place, on the current stream."""
     named = (("smp", smp), ("ref", ref), ("gx", gx), ("gy", gy),
              ("table", table), ("view_valid", view_valid), ("out", out))
-    for name, t in named:
-        want = torch.int32 if name == "table" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"exact_window_cost: {name} must be {want}, got "
-                            f"{t.dtype}")
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"exact_window_cost: {name} must be contiguous")
-    for name, t in named:
-        if t.device.type != "cuda" or t.device != smp.device:
-            raise ValueError(f"exact_window_cost: {name} must be on the "
-                             f"samples' CUDA device, got {t.device}")
+    _checked("exact_window_cost", named, ints=("table",))
     O = table.shape[0]
     if smp.dim() != 4 or smp.shape[1] % 3 or O < 1 or smp.shape[0] % O:
         raise ValueError(f"exact_window_cost: samples {tuple(smp.shape)} "
@@ -271,6 +339,7 @@ def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
     if tuple(out.shape) != (kc, H, W2) or not 0 <= v < view_valid.numel():
         raise ValueError(f"exact_window_cost: out {tuple(out.shape)} is not "
                          f"[{kc}, {H}, {W2}] or view {v} is out of range")
+    _on_card("exact_window_cost", named)
     if kc == 0:
         return
     rc = _cuda_fn()(kernels.ptr(smp), kernels.ptr(ref), kernels.ptr(gx),
@@ -285,6 +354,7 @@ def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
 
 
 _FN = None
+_WARP_FN = None
 
 
 def _cuda_fn():
@@ -296,6 +366,17 @@ def _cuda_fn():
         fn.restype = ci
         _FN = fn
     return _FN
+
+
+def _warp_fn():
+    global _WARP_FN
+    if _WARP_FN is None:
+        fn = kernels.library("exact_cost").gtt_exact_warp_coords
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+        fn.restype = ci
+        _WARP_FN = fn
+    return _WARP_FN
 
 
 def exact_window_inputs(scene: ScenePack, offsets, dev: torch.device
@@ -322,8 +403,9 @@ def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
     n: [K, H, W2, 3], d: [K, H, W2] on the parity's active half-grid.
     Returns [V, K, H, W2] with invalid (NaN / overflow / padded-view)
     entries at MAXCOST (gipuma.cu:770-775).  PM on a CUDA tensor takes the
-    window-sum kernel (exact_window_cost_cuda); a CPU tensor, and CENSUS,
-    the torch expression."""
+    warp kernel (exact_warp_coords_cuda) and the window-sum kernel
+    (exact_window_cost_cuda); a CPU tensor, and CENSUS, the torch
+    expressions."""
     if scene.src is None:
         raise ValueError("per_view_costs needs a full scene "
                          "(build_scene(lite=False))")
@@ -346,13 +428,26 @@ def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
     chunk = max(1, MAX_SAMPLES // max(1, O * h * w2))
     warps = [_plane_terms(scene, parity, n[k0:k0 + chunk], d[k0:k0 + chunk])
              for k0 in range(0, K, chunk)]
+    if on_kernel:
+        # One unit's positions, a buffer every (view, chunk) reuses: the
+        # sampler reads it before the next unit's warp writes it (one
+        # stream).
+        offs = _warp_table(tuple(map(tuple, offsets)), d.device)
+        coords = d.new_empty((2, min(chunk, K) * O, h, w2))
     out = d.new_empty((scene.num_views, K, h, w2))
     for v in range(scene.num_views):
         # Census reads only the image channels; PM all 3C.
         src_v = scene.src[v, :C] if census else scene.src[v]
+        if on_kernel:
+            ar, ac0, ac1 = view_warp_terms(scene, v, warps[0].rays)
         for k0, warp in zip(range(0, K, chunk), warps):
             kc = warp.mr.shape[0]
-            xw, yw = warped_coords(scene, v, warp, offsets)
+            if on_kernel:
+                xw, yw = coords[:, :kc * O]
+                exact_warp_coords_cuda(ar, ac0, ac1, scene.b[v], warp.mr,
+                                       warp.mc0, warp.mc1, offs, xw, yw)
+            else:
+                xw, yw = warped_coords(scene, v, warp, offsets)
             smp = bilinear_sample(src_v, xw, yw)              # [kc*O, *, H, W2]
             dst = out[v, k0:k0 + kc]
             if on_kernel:

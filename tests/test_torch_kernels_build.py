@@ -12,7 +12,9 @@ from gipuma_tpu_torch import kernels
 BIT_EQUAL = ("rowgather", "sampling", "rowgather_lerp", "rowgather_affine",
              "permute2d")
 # Sources that round each product and sum as their plain versions do and
-# differ from them only in the order of a sum: no FMA contraction either.
+# differ from them at most in the order of a sum (exact_cost: its warp
+# prologue is bit-equal, its window sum adds in another order): no FMA
+# contraction either.
 PLAIN_ROUNDING = ("exact_cost",)
 
 
@@ -53,5 +55,5 @@ def test_every_kernel_has_a_count():
     assert set(kernels.counts) == {
         "row_gather_nearest", "sdg_fused_cost", "bilinear_sample",
         "row_gather_lerp", "row_gather_affine", "permute2d",
-        "exact_window_cost"}
+        "exact_window_cost", "exact_warp_coords"}
     assert all(v == 0 for v in kernels.counts.values())

@@ -9,7 +9,9 @@ bit-equal at masked-on coordinates; the fused window cost agrees to 1e-3
 abs at covered pixels (the plain version rounds the weight and the window
 sums in another order, and the kernel contracts to FMA); the exact PM
 cost's window sum agrees to 1e-4 abs where finite and puts MAXCOST at the
-same places (it sums the offsets in another order); the bilinear
+same places (it sums the offsets in another order); its warp prologue is
+bit-equal to warped_coords, and the exact costs with it to the costs
+with warped_coords; the bilinear
 sampler and the lerp and affine row gathers are bit-equal (NaN where the
 plain version gives NaN), the affine gather's rows launch also to the
 stack of its one-row launches."""
@@ -346,7 +348,7 @@ def test_exact_window_cost_row_band(cuda_device, parity):
 
 def test_exact_window_cost_engages_on_pm_only(cuda_device):
     """per_view_costs_batch on the card: PM launches the window-sum kernel
-    once per sampler launch, CENSUS never."""
+    and the warp kernel once per sampler launch each, CENSUS neither."""
     from gipuma_tpu_torch import kernels
     from gipuma_tpu_torch.config import MatchingAlgorithm
     sc, p, gt = _exact_scene(cuda_device, 1, 11, 2)
@@ -360,6 +362,121 @@ def test_exact_window_cost_engages_on_pm_only(cuda_device):
         torch.cuda.synchronize()
         assert kernels.counts["exact_window_cost"] == launches
         assert kernels.counts["bilinear_sample"] >= 4
+        assert kernels.counts["exact_warp_coords"] == (
+            kernels.counts["bilinear_sample"] if launches else 0)
+
+
+def _half_planes(n, d, parity, degenerate=None):
+    """n, d [K, H, W(, 3)] on the parity's half-grid; degenerate (k, i, j):
+    d = 0 planted there (the half-grid's index)."""
+    K = n.shape[0]
+    na = torch.stack([tcb.extract(n[k], parity) for k in range(K)])
+    da = torch.stack([tcb.extract(d[k], parity) for k in range(K)])
+    if degenerate is not None:
+        da[degenerate] = 0.0
+    return na, da
+
+
+def _kernel_coords(sc, v, warp, offsets):
+    """The warp kernel's (xw, yw) for view v, as per_view_costs_batch
+    launches it."""
+    kc, h, w2 = warp.mr.shape
+    O = len(offsets)
+    xw = torch.full((kc * O, h, w2), 7.0, device=warp.mr.device)
+    yw = torch.full_like(xw, 7.0)
+    ar, ac0, ac1 = tco.view_warp_terms(sc, v, warp.rays)
+    tco.exact_warp_coords_cuda(ar, ac0, ac1, sc.b[v], warp.mr, warp.mc0,
+                               warp.mc1, tco._warp_table(
+                                   tuple(map(tuple, offsets)), xw.device),
+                               xw, yw)
+    return xw, yw
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("box,inc", [(11, 2), (15, 2), (9, 1)])
+@pytest.mark.parametrize("C", [1, 3])
+def test_exact_warp_coords_kernel_matches_warped_coords(cuda_device, C, box,
+                                                        inc, K, parity):
+    """csrc/exact_cost.cu's warp prologue against warped_coords at the
+    presets' windows (O = 36 and 64, the compiled loops) and at box 9 /
+    increment 1 (O = 80, the generic loop), every view: bit-equal, NaN at
+    the same places; a degenerate plane (d = 0) planted in candidate K-1
+    gives non-finite positions, the same bits."""
+    from gipuma_tpu_torch import kernels
+    sc, p, gt = _exact_scene(cuda_device, C, box, inc)
+    n, d = _exact_planes(sc, gt, K, seed=10 * box + K + parity)
+    na, da = _half_planes(n, d, parity, degenerate=(K - 1, 5, 7))
+    offsets = tco.window_offsets(p)
+    O = len(offsets)
+    warp = tco._plane_terms(sc, parity, na, da)
+    kernels.reset_counts()
+    for v in range(sc.num_views):
+        got = _kernel_coords(sc, v, warp, offsets)
+        want = tco.warped_coords(sc, v, warp, offsets)
+        for g, w in zip(got, want):
+            assert _same(g, w)
+        assert not bool(torch.isfinite(want[0][(K - 1) * O:, 5, 7]).all())
+    torch.cuda.synchronize()
+    assert kernels.counts["exact_warp_coords"] == sc.num_views
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_exact_warp_coords_row_band(cuda_device, parity):
+    """A row band (rows 16..31 of 48, row_offset 16), as tile sharding
+    builds it: the kernel against warped_coords on the band, and bit-equal
+    to the whole scene's kernel positions at the band's rows."""
+    sc, p, gt = _exact_scene(cuda_device, 1, 11, 2)
+    n, d = _exact_planes(sc, gt, 4, seed=7 + parity)
+    r0, hb = 16, 16
+    rs = slice(r0, r0 + hb)
+    bs = sc._replace(rays=sc.rays[rs], view_vec=sc.view_vec[rs],
+                     texture_ok=sc.texture_ok[rs],
+                     row_offset=torch.tensor(r0, dtype=torch.int32,
+                                             device=cuda_device))
+    offsets = tco.window_offsets(p)
+    O = len(offsets)
+    na, da = _half_planes(n, d, parity)
+    warp = tco._plane_terms(sc, parity, na, da)
+    bwarp = tco._plane_terms(bs, parity, na[:, rs], da[:, rs])
+    for v in range(sc.num_views):
+        got = _kernel_coords(bs, v, bwarp, offsets)
+        want = tco.warped_coords(bs, v, bwarp, offsets)
+        whole = _kernel_coords(sc, v, warp, offsets)
+        for g, w, a in zip(got, want, whole):
+            assert _same(g, w)
+            assert g.shape == (4 * O, hb, a.shape[-1])
+            assert _same(g, a[:, rs])
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("box,inc", [(11, 2), (15, 2)])
+def test_exact_costs_equal_the_torch_warp_composition(cuda_device, box, inc,
+                                                      parity):
+    """per_view_costs_batch on the card (the warp kernel, the sampler, the
+    window-sum kernel) is bit-equal to the same costs with torch's
+    warped_coords in place of the warp kernel, a degenerate plane
+    included (MAXCOST at the same places)."""
+    from gipuma_tpu_torch import kernels
+    sc, p, gt = _exact_scene(cuda_device, 1, box, inc)
+    n, d = _exact_planes(sc, gt, 4, seed=3 * box + parity)
+    na, da = _half_planes(n, d, parity, degenerate=(3, 5, 7))
+    offsets = tco.window_offsets(p)
+    kernels.reset_counts()
+    got = tco.per_view_costs_batch(sc, p, parity, na, da)
+    torch.cuda.synchronize()
+    assert kernels.counts["exact_warp_coords"] == sc.num_views
+    warp = tco._plane_terms(sc, parity, na, da)
+    ref, gx, gy, table = tco.exact_window_inputs(sc, offsets, da.device)
+    want = torch.empty_like(got)
+    for v in range(sc.num_views):
+        xw, yw = tco.warped_coords(sc, v, warp, offsets)
+        smp = tsm.bilinear_sample(sc.src[v], xw, yw)
+        tco.exact_window_cost_cuda(smp, ref, gx, gy, table, sc.view_valid,
+                                   v, want[v], parity, sc.ref_img.pr,
+                                   sc.ref_img.pc, p)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[:3, 3, 5, 7] == MAXCOST).all())
 
 
 def _same(got, want):
@@ -578,6 +695,9 @@ def test_scan_graph_matches_host_loop(cuda_device, monkeypatch, path):
     # The exact path sums every PM sampler launch's windows in the kernel,
     # inside the captured graph too; the rect paths never launch it.
     assert h_n["exact_window_cost"] == (
+        h_n["bilinear_sample"] if path == "exact" else 0)
+    # So does the warp kernel build every PM sampler launch's positions.
+    assert h_n["exact_warp_coords"] == (
         h_n["bilinear_sample"] if path == "exact" else 0)
     assert s_off == h_off
 
