@@ -1504,7 +1504,7 @@ def exact_warp_lines(torch, card) -> dict:
         d = 4.0 + torch.rand((K, H, W // 2), generator=g, device=dev)
         warp = ec._plane_terms(scene, 0, n, d)
         ar, ac0, ac1 = ec.view_warp_terms(scene, 0, warp.rays)
-        table = ec._warp_table(tuple(map(tuple, offs)), dev)
+        table = ec.offset_tables(offs, dev)[0]
         xw = torch.empty((K * O, H, W // 2), device=dev)
         yw = torch.empty_like(xw)
 

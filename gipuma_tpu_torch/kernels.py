@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels; count launches.
+"""Build, bind, check and launch the port's hand-written CUDA kernels;
+count launches.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``)
@@ -6,12 +7,15 @@ and loaded with ``ctypes``.  Builds run at first use, all sources in
 parallel, into ``build/`` beside this file; a library is rebuilt only when
 its source or flags change (the file name carries their hash).  The flags
 are ``NVCC_FLAGS`` and the source's own ``SOURCE_FLAGS`` (``nvcc_command``
-gives the whole command).
+gives the whole command).  ``ENTRIES`` types every C entry; ``entry``
+binds one once, ``check_args`` refuses a wrapper's tensor arguments before
+any build, and ``launch`` runs an entry, raises on its error and counts it.
 
-``counts`` holds one plain integer per kernel: a wrapper adds one exactly
-where it launches its kernel.  ``bytes_moved`` sums, per launch, the bytes
-a launch must move (each input read once, each output written once) for
-the kernels whose wrappers count them (the affine gather).
+``counts`` holds one plain integer per kernel: ``launch`` adds one
+exactly where a wrapper launches its kernel.  ``bytes_moved`` sums, per
+launch, the bytes a launch must move (each input read once, each output
+written once) for the kernels whose wrappers count them (the affine
+gather).
 ``reset_counts`` sets both to 0.
 """
 from __future__ import annotations
@@ -60,12 +64,36 @@ SOURCE_FLAGS = {
     "exact_cost": ["-fmad=false"],
 }
 
+# C entry -> (library, argument types).  Every entry returns an int: its
+# launch's cudaGetLastError() (the staged-rows query: a row count).
+_vp, _ci, _cf, _cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+ENTRIES = {
+    "gtt_row_gather_nearest": ("rowgather", [_vp] * 4 + [_ci] * 6 + [_vp]),
+    "gtt_row_gather_lerp": ("rowgather_lerp", [_vp] * 3 + [_ci] * 8 + [_vp]),
+    # (src, abc, disp_bounds, out, dxs[E], E, dys[R], src_dys[R], R, K, C,
+    # H, W, Ws, stream)
+    "gtt_row_gather_affine_rows": (
+        "rowgather_affine",
+        [_vp] * 5 + [_ci, _vp, _vp] + [_ci] * 6 + [_vp]),
+    "gtt_row_gather_affine_staged_rows": ("rowgather_affine", [_ci] * 3),
+    "gtt_sdg_fused_cost": ("sdg_fused",
+                           [_vp] * 7 + [_ci] * 13 + [_cf] * 7 + [_vp]),
+    "gtt_bilinear_sample": ("sampling",
+                            [_vp] * 4 + [_ci] * 3 + [_cll] * 2 + [_vp]),
+    "gtt_permute2d": ("permute2d", [_vp] * 5 + [_ci] * 6 + [_vp]),
+    "gtt_exact_window_cost": ("exact_cost",
+                              [_vp] * 7 + [_ci] * 11 + [_cf] * 6 + [_vp]),
+    "gtt_exact_warp_coords": ("exact_cost", [_vp] * 10 + [_ci] * 4 + [_vp]),
+}
+
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
           "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
           "permute2d": 0, "exact_window_cost": 0, "exact_warp_coords": 0}
 bytes_moved = {"row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 
@@ -145,10 +173,44 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise if a launch returned a non-zero cudaGetLastError()."""
+def entry(symbol: str):
+    """C entry `symbol` of its library (ENTRIES), typed, bound once."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        lib, argtypes = ENTRIES[symbol]
+        fn = getattr(library(lib), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[symbol] = fn
+    return fn
+
+
+def launch(what: str, symbol: str, *args) -> None:
+    """Run C entry `symbol` on `args`, raise if it returned a non-zero
+    cudaGetLastError(), and add one to counts[what]."""
+    rc = entry(symbol)(*args)
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+    counts[what] += 1
+
+
+def check_args(what: str, named, ints=()) -> None:
+    """Refuse a kernel's tensor argument by name: float32 (int32 for the
+    names in `ints`; TypeError), contiguous, and on the first argument's
+    CUDA device (ValueError)."""
+    import torch
+    for name, t in named:
+        want = torch.int32 if name in ints else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    first, dev = named[0][0], named[0][1].device
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: {name} must be on the {first}'s CUDA "
+                             f"device, got {t.device}")
 
 
 def ptr(t) -> ctypes.c_void_p:

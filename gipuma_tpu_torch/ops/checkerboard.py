@@ -59,6 +59,8 @@ class PaddedEO:
         self.E, self.O = E, O
         self.pr, self.pc, self.h, self.w2 = pr, pc, h, w2
         self._windows: dict = {}
+        self._planes = None
+        self._fits: set = set()
 
     @staticmethod
     def build(a: torch.Tensor, pr: int, pc: int) -> "PaddedEO":
@@ -113,3 +115,18 @@ class PaddedEO:
                                for dx, dy in offsets])
             self._windows[key] = win
         return win
+
+    def planes(self, offsets) -> torch.Tensor:
+        """[2, H + 2pr, W2 + pc(, C)]: E and O stacked, contiguous, for
+        reads at `offsets` (the exact cost's window-sum kernel); made once,
+        like the windows.  Each offset must fit the padding (|dx| <= pc,
+        |dy| <= pr), as `shifted` needs: checked once per `offsets`."""
+        key = tuple(offsets)
+        if key not in self._fits:
+            if any(abs(dx) > self.pc or abs(dy) > self.pr for dx, dy in key):
+                raise ValueError(f"the window exceeds the reference padding "
+                                 f"(pr {self.pr}, pc {self.pc})")
+            self._fits.add(key)
+        if self._planes is None:
+            self._planes = torch.stack([self.E, self.O]).contiguous()
+        return self._planes

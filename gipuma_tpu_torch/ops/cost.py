@@ -11,23 +11,21 @@ Layout of one evaluation: for each source view, the warped positions of
 all K candidates at all O window offsets are computed at once and sampled
 by ONE launch of the bilinear sampler (ops/sampling.py, kernel 3) from the
 view's [3C, H, W] (image, gx, gy) channels; the window terms are then
-summed over the offset axis.  On a CUDA tensor PM runs the two kernels of
-``csrc/exact_cost.cu`` around the sampler, one launch each per (view,
-candidate chunk): the warp prologue writes the positions
-(exact_warp_coords_cuda, bit-equal to warped_coords), and the window sum
-is written in place into the [V, K, H, W2] result; it adds the terms one
-at a time in the JAX package's order (dx-even offsets first).  On a CPU
-tensor (and for CENSUS everywhere) the torch expressions run instead,
-warped_coords and a window sum over the offset axis at once: the latter
-rounds in another order (the tests hold costs to 1e-4 abs).  Views run
+summed over the offset axis.  PM runs one loop over (view, candidate
+chunk) of three ops, each the kernel on a CUDA tensor and its plain
+version on a CPU tensor: the warp (exact_warp_coords; csrc/exact_cost.cu's
+prologue, bit-equal to warped_coords), the sampler, and the window sum
+(pm_window_cost; csrc/exact_cost.cu's epilogue, written in place into the
+[V, K, H, W2] result).  The kernel adds the window terms one at a time in
+the JAX package's order (dx-even offsets first); the plain version sums
+over the offset axis at once, in another order (the tests hold costs to
+1e-4 abs).  CENSUS runs the torch expressions on either device.  Views run
 one after another, so one view's [K, O, H, W2] intermediates are live at
 a time.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import weakref
 from typing import NamedTuple
 
 import torch
@@ -105,16 +103,16 @@ def _census_bits(center, value, eps):
                        torch.where(value - center > eps, 2 * one, one))
 
 
-def window_offsets(params: AlgorithmParams) -> list[tuple[int, int]]:
-    """(dx, dy) offsets of the cost window: PM samples every
-    window_increment-th pixel; CENSUS the full window at increment 1 with
-    the center left out (gipuma.cu:435-439)."""
+def window_offsets(params: AlgorithmParams) -> tuple:
+    """(dx, dy) offsets of the cost window, a tuple (it keys the offset
+    tables): PM samples every window_increment-th pixel; CENSUS the full
+    window at increment 1 with the center left out (gipuma.cu:435-439)."""
     if params.algorithm == MatchingAlgorithm.CENSUS:
-        return [(dx, dy)
-                for dx in range(-params.box_hrad, params.box_hrad + 1)
-                for dy in range(-params.box_vrad, params.box_vrad + 1)
-                if not (dx == 0 and dy == 0)]
-    return params.window_offsets()
+        return tuple((dx, dy)
+                     for dx in range(-params.box_hrad, params.box_hrad + 1)
+                     for dy in range(-params.box_vrad, params.box_vrad + 1)
+                     if not (dx == 0 and dy == 0))
+    return tuple(params.window_offsets())
 
 
 class _Warp(NamedTuple):
@@ -141,13 +139,18 @@ def _center(scene: ScenePack, v: int, warp: _Warp) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _offset_axes(offsets: tuple, dtype: torch.dtype, dev: torch.device):
-    """The window offsets' dx and dy as [1, O, 1, 1] tensors on `dev`, made
-    once per (offsets, dtype, device): a later evaluation copies nothing
-    from the host, so a CUDA graph can capture it."""
-    dxs = torch.tensor([o[0] for o in offsets], dtype=dtype, device=dev)
-    dys = torch.tensor([o[1] for o in offsets], dtype=dtype, device=dev)
-    return dxs[None, :, None, None], dys[None, :, None, None]
+def offset_tables(offsets: tuple, dev: torch.device) -> tuple:
+    """The window offsets (window_offsets' tuple) as the exact path reads
+    them, made once per (offsets, device): a later evaluation copies
+    nothing from the host, so a CUDA graph can capture it.  f32 [O, 2] (dx,
+    dy) in the sampled list's order (the warp), and int32 [O, 3] (dx, dy,
+    o) in the JAX package's summation order (the window sum): the offsets
+    grouped by dx parity, even first, each group in list order, o the
+    offset's place in `offsets`."""
+    order = sorted(range(len(offsets)), key=lambda o: offsets[o][0] % 2)
+    return (torch.tensor(offsets, dtype=torch.float32, device=dev),
+            torch.tensor([(offsets[o][0], offsets[o][1], o) for o in order],
+                         dtype=torch.int32, device=dev))
 
 
 def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
@@ -159,7 +162,8 @@ def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
     u = _center(scene, v, warp)
     ax = T._matvec(Av, scene.k1inv_c0) - bv * warp.mc0[..., None]
     ay = T._matvec(Av, scene.k1inv_c1) - bv * warp.mc1[..., None]
-    dxs, dys = _offset_axes(tuple(map(tuple, offsets)), u.dtype, u.device)
+    table = offset_tables(offsets, u.device)[0]
+    dxs, dys = table[:, 0, None, None], table[:, 1, None, None]  # [O, 1, 1]
 
     def comp(i):
         return (u[:, None, ..., i] + dxs * ax[:, None, ..., i]) \
@@ -173,13 +177,6 @@ def warped_coords(scene: ScenePack, v: int, warp: _Warp, offsets
         yw.reshape((K * O,) + yw.shape[2:])
 
 
-@functools.lru_cache(maxsize=64)
-def _warp_table(offsets: tuple, dev: torch.device) -> torch.Tensor:
-    """f32 [O, 2] (dx, dy) in the sampled list's order: the warp kernel's
-    offsets, made once per (offsets, device), like _offset_axes."""
-    return torch.tensor(offsets, dtype=torch.float32, device=dev)
-
-
 def view_warp_terms(scene: ScenePack, v: int, rays: torch.Tensor) -> tuple:
     """View v's share of warped_coords, the same for every candidate: (A r
     [H, W2, 3], A K1inv[:, 0], A K1inv[:, 1]), each as warped_coords
@@ -189,26 +186,28 @@ def view_warp_terms(scene: ScenePack, v: int, rays: torch.Tensor) -> tuple:
             T._matvec(Av, scene.k1inv_c1))
 
 
-def _checked(what: str, named, ints=()) -> None:
-    """Refuse a kernel argument by name: f32 (int32 for `ints`) and
-    contiguous."""
-    for name, t in named:
-        want = torch.int32 if name in ints else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+def exact_warp_coords_plain(ar: torch.Tensor, ac0: torch.Tensor,
+                            ac1: torch.Tensor, b: torch.Tensor,
+                            mr: torch.Tensor, mc0: torch.Tensor,
+                            mc1: torch.Tensor, table: torch.Tensor,
+                            xw: torch.Tensor, yw: torch.Tensor) -> None:
+    """Plain version of csrc/exact_cost.cu's warp prologue: the kernel's
+    arithmetic in torch, term by term in its order, from its arguments
+    (exact_warp_coords_cuda), written into xw, yw.  Bit-equal to
+    warped_coords."""
+    u = ar[None] - b * mr[..., None]                      # [kc, H, W2, 3]
+    ax = ac0 - b * mc0[..., None]
+    ay = ac1 - b * mc1[..., None]
+    dx, dy = table[:, 0, None, None], table[:, 1, None, None]  # [O, 1, 1]
 
+    def comp(i):
+        return (u[:, None, ..., i] + dx * ax[:, None, ..., i]) \
+            + dy * ay[:, None, ..., i]                     # [kc, O, H, W2]
 
-def _on_card(what: str, named) -> None:
-    """Refuse a kernel argument by name that is not on the first one's
-    CUDA device."""
-    first, dev = named[0][0], named[0][1].device
-    for name, t in named:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{what}: {name} must be on the {first}'s CUDA "
-                             f"device, got {t.device}")
+    pz = comp(2)
+    shape = pz.shape
+    torch.div(comp(0), pz, out=xw.view(shape))
+    torch.div(comp(1), pz, out=yw.view(shape))
 
 
 def exact_warp_coords_cuda(ar: torch.Tensor, ac0: torch.Tensor,
@@ -216,17 +215,12 @@ def exact_warp_coords_cuda(ar: torch.Tensor, ac0: torch.Tensor,
                            mr: torch.Tensor, mc0: torch.Tensor,
                            mc1: torch.Tensor, table: torch.Tensor,
                            xw: torch.Tensor, yw: torch.Tensor) -> None:
-    """Launch csrc/exact_cost.cu's warp prologue: xw, yw [kc * O, H, W2]
-    (candidate-major) = warped_coords of one view, from its terms ar [H,
-    W2, 3], ac0, ac1 (view_warp_terms) and b [3] (scene.b[v]), the
-    candidates' plane terms mr, mc0, mc1 [kc, H, W2] (_plane_terms) and
-    the offsets table [O, 2] (_warp_table).  Bit-equal to warped_coords;
-    written in place, on the current stream."""
+    """Launch csrc/exact_cost.cu's warp prologue: same contract as the
+    plain version; on the current stream."""
     what = "exact_warp_coords"
     named = (("ar", ar), ("ac0", ac0), ("ac1", ac1), ("b", b), ("mr", mr),
              ("mc0", mc0), ("mc1", mc1), ("table", table), ("xw", xw),
              ("yw", yw))
-    _checked(what, named)
     if mr.dim() != 3:
         raise ValueError(f"{what}: mr {tuple(mr.shape)} is not [kc, H, W2]")
     if table.dim() != 2 or table.shape[0] < 1:
@@ -240,13 +234,28 @@ def exact_warp_coords_cuda(ar: torch.Tensor, ac0: torch.Tensor,
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
                              f"{list(want[name])}")
-    _on_card(what, named)
+    kernels.check_args(what, named)
     if kc == 0:
         return
-    rc = _warp_fn()(*(kernels.ptr(t) for _, t in named), kc, O, H, W2,
-                    kernels.stream_ptr(mr.device))
-    kernels.check(rc, what)
-    kernels.counts["exact_warp_coords"] += 1
+    kernels.launch(what, "gtt_exact_warp_coords",
+                   *(kernels.ptr(t) for _, t in named), kc, O, H, W2,
+                   kernels.stream_ptr(mr.device))
+
+
+def exact_warp_coords(ar: torch.Tensor, ac0: torch.Tensor,
+                      ac1: torch.Tensor, b: torch.Tensor, mr: torch.Tensor,
+                      mc0: torch.Tensor, mc1: torch.Tensor,
+                      table: torch.Tensor, xw: torch.Tensor,
+                      yw: torch.Tensor) -> None:
+    """The warp op: xw, yw [kc * O, H, W2] (candidate-major) = warped_coords
+    of one view, from its terms ar [H, W2, 3], ac0, ac1 (view_warp_terms)
+    and b [3] (scene.b[v]), the candidates' plane terms mr, mc0, mc1 [kc,
+    H, W2] (_plane_terms) and the f32 offset table [O, 2] (offset_tables),
+    written in place.  The kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    warp = exact_warp_coords_plain if xw.device.type == "cpu" \
+        else exact_warp_coords_cuda
+    warp(ar, ac0, ac1, b, mr, mc0, mc1, table, xw, yw)
 
 
 def _guard(acc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -287,28 +296,14 @@ def pm_window_cost_plain(smp: torch.Tensor, terms: tuple,
     return _guard((wgt * ((1.0 - a) * col + a * grad)).sum(1), valid)
 
 
-# PaddedEO -> its even and odd column planes as one contiguous
-# [2, H + 2pr, W2 + pc, C] tensor, made once per PaddedEO (per scene).
-_REF_PLANES = weakref.WeakKeyDictionary()
-
-
-def _ref_planes(eo: cb.PaddedEO) -> torch.Tensor:
-    planes = _REF_PLANES.get(eo)
-    if planes is None:
-        planes = torch.stack([eo.E, eo.O]).contiguous()
-        _REF_PLANES[eo] = planes
-    return planes
-
-
-@functools.lru_cache(maxsize=64)
-def _offset_table(offsets: tuple, dev: torch.device) -> torch.Tensor:
-    """int32 [O, 3] (dx, dy, o) in the JAX package's summation order: the
-    offsets grouped by dx parity, even first, each group in list order; o
-    is the offset's place in `offsets` (the sampler's order).  Made once
-    per (offsets, device), like _offset_axes."""
-    order = sorted(range(len(offsets)), key=lambda o: offsets[o][0] % 2)
-    return torch.tensor([(offsets[o][0], offsets[o][1], o) for o in order],
-                        dtype=torch.int32, device=dev)
+def exact_window_inputs(scene: ScenePack, offsets, dev: torch.device
+                        ) -> tuple:
+    """The window-sum kernel's reads for `offsets` (window_offsets' tuple):
+    the planes of ref_img, ref_gx and ref_gy (PaddedEO.planes, which
+    refuses a window past the padding) and the int32 offset table
+    (offset_tables)."""
+    return (scene.ref_img.planes(offsets), scene.ref_gx.planes(offsets),
+            scene.ref_gy.planes(offsets), offset_tables(offsets, dev)[1])
 
 
 def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
@@ -318,81 +313,115 @@ def exact_window_cost_cuda(smp: torch.Tensor, ref: torch.Tensor,
                            pc: int, params: AlgorithmParams) -> None:
     """Launch csrc/exact_cost.cu: out [kc, H, W2] = the guarded PM window
     sum of view v's samples smp [kc * O, 3C, H, W2] against the reference
-    planes ref, gx, gy [2, H + 2pr, W2 + pc, C] (_ref_planes), over the
-    offsets of table [O, 3] (_offset_table).  Same contract as
-    pm_window_cost_plain; written in place, on the current stream."""
-    named = (("smp", smp), ("ref", ref), ("gx", gx), ("gy", gy),
-             ("table", table), ("view_valid", view_valid), ("out", out))
-    _checked("exact_window_cost", named, ints=("table",))
+    planes ref, gx, gy [2, H + 2pr, W2 + pc, C] over the offsets of table
+    [O, 3] (exact_window_inputs).  Same contract as pm_window_cost_plain;
+    written in place, on the current stream."""
+    what = "exact_window_cost"
     O = table.shape[0]
     if smp.dim() != 4 or smp.shape[1] % 3 or O < 1 or smp.shape[0] % O:
-        raise ValueError(f"exact_window_cost: samples {tuple(smp.shape)} "
-                         f"are not [kc * {O}, 3C, H, W2]")
+        raise ValueError(f"{what}: samples {tuple(smp.shape)} are not "
+                         f"[kc * {O}, 3C, H, W2]")
     kc, C, (H, W2) = smp.shape[0] // O, smp.shape[1] // 3, smp.shape[2:]
     if ref.shape != gx.shape or ref.shape != gy.shape or ref.dim() != 4 \
             or ref.shape[0] != 2 or ref.shape[1] != H + 2 * pr \
             or ref.shape[2] != W2 + pc or ref.shape[3] != C:
-        raise ValueError(f"exact_window_cost: reference planes "
-                         f"{tuple(ref.shape)}, {tuple(gx.shape)}, "
-                         f"{tuple(gy.shape)} are not [2, {H + 2 * pr}, "
-                         f"{W2 + pc}, {C}]")
+        raise ValueError(f"{what}: reference planes {tuple(ref.shape)}, "
+                         f"{tuple(gx.shape)}, {tuple(gy.shape)} are not "
+                         f"[2, {H + 2 * pr}, {W2 + pc}, {C}]")
     if tuple(out.shape) != (kc, H, W2) or not 0 <= v < view_valid.numel():
-        raise ValueError(f"exact_window_cost: out {tuple(out.shape)} is not "
+        raise ValueError(f"{what}: out {tuple(out.shape)} is not "
                          f"[{kc}, {H}, {W2}] or view {v} is out of range")
-    _on_card("exact_window_cost", named)
+    kernels.check_args(what, (("smp", smp), ("ref", ref), ("gx", gx),
+                              ("gy", gy), ("table", table),
+                              ("view_valid", view_valid), ("out", out)),
+                       ints=("table",))
     if kc == 0:
         return
-    rc = _cuda_fn()(kernels.ptr(smp), kernels.ptr(ref), kernels.ptr(gx),
-                    kernels.ptr(gy), kernels.ptr(table),
-                    kernels.ptr(view_valid), kernels.ptr(out), kc, O, C, H,
-                    W2, ref.shape[1], ref.shape[2], pr, pc, parity, v,
-                    1.0 - params.alpha, params.alpha, 1.0 / params.gamma,
-                    params.tau_color, params.tau_gradient, MAXCOST,
-                    kernels.stream_ptr(smp.device))
-    kernels.check(rc, "exact_window_cost")
-    kernels.counts["exact_window_cost"] += 1
+    kernels.launch(what, "gtt_exact_window_cost", kernels.ptr(smp),
+                   kernels.ptr(ref), kernels.ptr(gx), kernels.ptr(gy),
+                   kernels.ptr(table), kernels.ptr(view_valid),
+                   kernels.ptr(out), kc, O, C, H, W2, ref.shape[1],
+                   ref.shape[2], pr, pc, parity, v, 1.0 - params.alpha,
+                   params.alpha, 1.0 / params.gamma, params.tau_color,
+                   params.tau_gradient, MAXCOST,
+                   kernels.stream_ptr(smp.device))
 
 
-_FN = None
-_WARP_FN = None
+class PMWindow(NamedTuple):
+    """What one call's PM window sums read besides the samples, built once
+    before its loop (pm_window).  `reads`: on a CUDA device the reference
+    planes and the int32 offset table (exact_window_inputs), on the CPU
+    pm_reference_terms."""
+    reads: tuple
+    scene: ScenePack
+    params: AlgorithmParams
+    parity: int
 
 
-def _cuda_fn():
-    global _FN
-    if _FN is None:
-        fn = kernels.library("exact_cost").gtt_exact_window_cost
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci] * 11 + [cf] * 6 + [vp]
-        fn.restype = ci
-        _FN = fn
-    return _FN
+def pm_window(scene: ScenePack, params: AlgorithmParams, offsets,
+              parity: int, dev: torch.device) -> PMWindow:
+    """The PMWindow of one call on device `dev`."""
+    reads = pm_reference_terms(scene, params, offsets, parity) \
+        if dev.type == "cpu" else exact_window_inputs(scene, offsets, dev)
+    return PMWindow(reads, scene, params, parity)
 
 
-def _warp_fn():
-    global _WARP_FN
-    if _WARP_FN is None:
-        fn = kernels.library("exact_cost").gtt_exact_warp_coords
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 4 + [vp]
-        fn.restype = ci
-        _WARP_FN = fn
-    return _WARP_FN
+def pm_window_cost(smp: torch.Tensor, win: PMWindow, v: int,
+                   out: torch.Tensor) -> None:
+    """The window op: out [kc, H, W2] = the guarded PM window sum of view
+    v's samples smp [kc * O, 3C, H, W2] (the sampler's output), written in
+    place.  The kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    sc = win.scene
+    if out.device.type == "cpu":
+        out.copy_(pm_window_cost_plain(smp, win.reads, win.params,
+                                       sc.view_valid[v]))
+    else:
+        exact_window_cost_cuda(smp, *win.reads, sc.view_valid, v, out,
+                               win.parity, sc.ref_img.pr, sc.ref_img.pc,
+                               win.params)
 
 
-def exact_window_inputs(scene: ScenePack, offsets, dev: torch.device
-                        ) -> tuple:
-    """The kernel's reference inputs for `offsets`: the planes of ref_img,
-    ref_gx and ref_gy (_ref_planes) and the offset table (_offset_table).
-    The window must fit the reference's padding (|dx| <= pc, |dy| <= pr),
-    as PaddedEO.shifted needs."""
-    eo = scene.ref_img
-    offsets = tuple(map(tuple, offsets))
-    if max(abs(dx) for dx, _ in offsets) > eo.pc \
-            or max(abs(dy) for _, dy in offsets) > eo.pr:
-        raise ValueError(f"exact_window_cost: the window exceeds the "
-                         f"reference padding (pr {eo.pr}, pc {eo.pc})")
-    return (_ref_planes(eo), _ref_planes(scene.ref_gx),
-            _ref_planes(scene.ref_gy), _offset_table(offsets, dev))
+def _plane_chunks(scene: ScenePack, parity: int, n: torch.Tensor,
+                  d: torch.Tensor, O: int) -> list:
+    """(k0, plane terms) of each chunk of the K candidates: at most
+    MAX_SAMPLES positions (kc * O * H * W2) a chunk, one candidate at
+    least."""
+    K, h, w2 = d.shape
+    chunk = max(1, MAX_SAMPLES // max(1, O * h * w2))
+    return [(k0, _plane_terms(scene, parity, n[k0:k0 + chunk],
+                              d[k0:k0 + chunk]))
+            for k0 in range(0, K, chunk)]
+
+
+def _census_costs(scene: ScenePack, params: AlgorithmParams, parity: int,
+                  n: torch.Tensor, d: torch.Tensor, offsets) -> torch.Tensor:
+    """per_view_costs_batch for CENSUS: the torch expressions on either
+    device (warped_coords, the sampler on the image channels, the census
+    bits of the window against its center)."""
+    C, O = scene.channels, len(offsets)
+    ref_win = scene.ref_img.windows(offsets, parity)         # [O, H, W2, C]
+    ref_center_m = scene.ref_img.shifted(0, 0, parity).mean(-1)
+    bit_l = _census_bits(ref_center_m, ref_win.mean(-1),
+                         params.census_epsilon)              # [O, H, W2]
+    chunks = _plane_chunks(scene, parity, n, d, O)
+    out = d.new_empty((scene.num_views,) + tuple(d.shape))
+    for v in range(scene.num_views):
+        src_v = scene.src[v, :C]
+        for k0, warp in chunks:
+            kc = warp.mr.shape[0]
+            xw, yw = warped_coords(scene, v, warp, offsets)
+            smp = bilinear_sample(src_v, xw, yw)
+            smp = smp.reshape((kc, O) + smp.shape[1:])
+            # Warped center intensity (censusTransform_Arma_cu:429-430).
+            u = _center(scene, v, warp)
+            src_center = bilinear_sample(src_v, u[..., 0] / u[..., 2],
+                                         u[..., 1] / u[..., 2]).mean(1)
+            bit_r = _census_bits(src_center[:, None], smp.mean(2),
+                                 params.census_epsilon)
+            acc = (bit_l[None] != bit_r).to(d.dtype).sum(1)
+            out[v, k0:k0 + kc].copy_(_guard(acc, scene.view_valid[v]))
+    return out
 
 
 def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
@@ -402,72 +431,34 @@ def per_view_costs_batch(scene: ScenePack, params: AlgorithmParams,
 
     n: [K, H, W2, 3], d: [K, H, W2] on the parity's active half-grid.
     Returns [V, K, H, W2] with invalid (NaN / overflow / padded-view)
-    entries at MAXCOST (gipuma.cu:770-775).  PM on a CUDA tensor takes the
-    warp kernel (exact_warp_coords_cuda) and the window-sum kernel
-    (exact_window_cost_cuda); a CPU tensor, and CENSUS, the torch
-    expressions."""
+    entries at MAXCOST (gipuma.cu:770-775).  PM runs three ops per (view,
+    candidate chunk), each the kernel on a CUDA tensor and the plain
+    version on a CPU tensor: the warp (exact_warp_coords), the sampler
+    (bilinear_sample) and the window sum (pm_window_cost).  CENSUS runs
+    the torch expressions (_census_costs)."""
     if scene.src is None:
         raise ValueError("per_view_costs needs a full scene "
                          "(build_scene(lite=False))")
-    C = scene.channels
-    census = params.algorithm == MatchingAlgorithm.CENSUS
-    on_kernel = d.is_cuda and not census
     offsets = window_offsets(params)
+    if params.algorithm == MatchingAlgorithm.CENSUS:
+        return _census_costs(scene, params, parity, n, d, offsets)
     O = len(offsets)
-    K, h, w2 = d.shape
-    if census:
-        ref_win = scene.ref_img.windows(offsets, parity)     # [O, H, W2, C]
-        ref_center_m = scene.ref_img.shifted(0, 0, parity).mean(-1)
-        bit_l = _census_bits(ref_center_m, ref_win.mean(-1),
-                             params.census_epsilon)          # [O, H, W2]
-    elif on_kernel:
-        ref, gx, gy, table = exact_window_inputs(scene, offsets, d.device)
-    else:
-        terms = pm_reference_terms(scene, params, offsets, parity)
-
-    chunk = max(1, MAX_SAMPLES // max(1, O * h * w2))
-    warps = [_plane_terms(scene, parity, n[k0:k0 + chunk], d[k0:k0 + chunk])
-             for k0 in range(0, K, chunk)]
-    if on_kernel:
-        # One unit's positions, a buffer every (view, chunk) reuses: the
-        # sampler reads it before the next unit's warp writes it (one
-        # stream).
-        offs = _warp_table(tuple(map(tuple, offsets)), d.device)
-        coords = d.new_empty((2, min(chunk, K) * O, h, w2))
-    out = d.new_empty((scene.num_views, K, h, w2))
+    win = pm_window(scene, params, offsets, parity, d.device)
+    chunks = _plane_chunks(scene, parity, n, d, O)
+    table = offset_tables(offsets, d.device)[0]
+    # One unit's positions, a buffer every (view, chunk) reuses: the
+    # sampler reads it before the next unit's warp writes it (one stream).
+    coords = d.new_empty((2, chunks[0][1].mr.shape[0] * O) + d.shape[1:])
+    out = d.new_empty((scene.num_views,) + tuple(d.shape))
     for v in range(scene.num_views):
-        # Census reads only the image channels; PM all 3C.
-        src_v = scene.src[v, :C] if census else scene.src[v]
-        if on_kernel:
-            ar, ac0, ac1 = view_warp_terms(scene, v, warps[0].rays)
-        for k0, warp in zip(range(0, K, chunk), warps):
+        ar, ac0, ac1 = view_warp_terms(scene, v, chunks[0][1].rays)
+        for k0, warp in chunks:
             kc = warp.mr.shape[0]
-            if on_kernel:
-                xw, yw = coords[:, :kc * O]
-                exact_warp_coords_cuda(ar, ac0, ac1, scene.b[v], warp.mr,
-                                       warp.mc0, warp.mc1, offs, xw, yw)
-            else:
-                xw, yw = warped_coords(scene, v, warp, offsets)
-            smp = bilinear_sample(src_v, xw, yw)              # [kc*O, *, H, W2]
-            dst = out[v, k0:k0 + kc]
-            if on_kernel:
-                exact_window_cost_cuda(smp, ref, gx, gy, table,
-                                       scene.view_valid, v, dst, parity,
-                                       scene.ref_img.pr, scene.ref_img.pc,
-                                       params)
-            elif census:
-                smp = smp.reshape((kc, O) + smp.shape[1:])
-                # Warped center intensity (censusTransform_Arma_cu:429-430).
-                u = _center(scene, v, warp)
-                src_center = bilinear_sample(src_v, u[..., 0] / u[..., 2],
-                                             u[..., 1] / u[..., 2]).mean(1)
-                bit_r = _census_bits(src_center[:, None], smp.mean(2),
-                                     params.census_epsilon)
-                acc = (bit_l[None] != bit_r).to(d.dtype).sum(1)
-                dst.copy_(_guard(acc, scene.view_valid[v]))
-            else:
-                dst.copy_(pm_window_cost_plain(smp, terms, params,
-                                               scene.view_valid[v]))
+            xw, yw = coords[:, :kc * O]
+            exact_warp_coords(ar, ac0, ac1, scene.b[v], warp.mr, warp.mc0,
+                              warp.mc1, table, xw, yw)
+            pm_window_cost(bilinear_sample(scene.src[v], xw, yw), win, v,
+                           out[v, k0:k0 + kc])
     return out
 
 

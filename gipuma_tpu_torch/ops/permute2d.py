@@ -19,14 +19,13 @@ every (s, l); `build_tables` reports the residual.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import kernels
-from .rowgather import _cuda_fn, _tile_mask
+from .rowgather import _tile_mask
 
 
 class PermuteTables(NamedTuple):
@@ -238,15 +237,11 @@ def permute2d_cuda(x: torch.Tensor, c1: torch.Tensor, r: torch.Tensor,
         raise ValueError("permute2d: 32-bit offsets")
     tm = None if mask2 is None else _tile_mask(mask2, out_w, out_h)
     out = torch.empty((C, out_h, out_w), dtype=torch.int32, device=x.device)
-    fn = _cuda_fn("permute2d", "gtt_permute2d",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p])
-    rc = fn(kernels.ptr(x.view(torch.int32)), kernels.ptr(c1),
-            kernels.ptr(r), kernels.ptr(tm), kernels.ptr(out), C, in_h, in_w,
-            out_h, out_w, 0 if tm is None else tm.shape[1],
-            kernels.stream_ptr(x.device))
-    kernels.check(rc, "permute2d")
-    kernels.counts["permute2d"] += 1
+    kernels.launch("permute2d", "gtt_permute2d",
+                   kernels.ptr(x.view(torch.int32)), kernels.ptr(c1),
+                   kernels.ptr(r), kernels.ptr(tm), kernels.ptr(out), C, in_h,
+                   in_w, out_h, out_w, 0 if tm is None else tm.shape[1],
+                   kernels.stream_ptr(x.device))
     return out.view(x.dtype)
 
 

@@ -207,14 +207,11 @@ def row_gather_nearest_cuda(src_chw: torch.Tensor, x: torch.Tensor,
     words = src_chw.view(torch.int32)
     out = torch.empty((B, C, H, Ws), dtype=torch.int32, device=x.device)
     tm = None if tile_ok is None else _tile_mask(tile_ok, H, Ws)
-    fn = _cuda_fn("rowgather", "gtt_row_gather_nearest",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p])
-    rc = fn(kernels.ptr(words), kernels.ptr(x), kernels.ptr(tm),
-            kernels.ptr(out), B, C, H, W, Ws,
-            0 if tm is None else tm.shape[1], kernels.stream_ptr(x.device))
-    kernels.check(rc, "row_gather_nearest")
-    kernels.counts["row_gather_nearest"] += 1
+    kernels.launch("row_gather_nearest", "gtt_row_gather_nearest",
+                   kernels.ptr(words), kernels.ptr(x), kernels.ptr(tm),
+                   kernels.ptr(out), B, C, H, W, Ws,
+                   0 if tm is None else tm.shape[1],
+                   kernels.stream_ptr(x.device))
     return out.view(src_chw.dtype)
 
 
@@ -236,14 +233,10 @@ def row_gather_lerp_cuda(src_chw: torch.Tensor, x: torch.Tensor,
     _check_grid("row_gather lerp", src_chw, x, M, B)
     co = C + C // 2 if grad_fwd else C
     out = torch.empty((B, co, H, Ws), dtype=torch.float32, device=x.device)
-    fn = _cuda_fn("rowgather_lerp", "gtt_row_gather_lerp",
-                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p])
-    rc = fn(kernels.ptr(src_chw), kernels.ptr(x), kernels.ptr(out), B, C, H,
-            W, Ws, int(src_dy), int(packed), int(grad_fwd),
-            kernels.stream_ptr(x.device))
-    kernels.check(rc, "row_gather_lerp")
-    kernels.counts["row_gather_lerp"] += 1
+    kernels.launch("row_gather_lerp", "gtt_row_gather_lerp",
+                   kernels.ptr(src_chw), kernels.ptr(x), kernels.ptr(out), B,
+                   C, H, W, Ws, int(src_dy), int(packed), int(grad_fwd),
+                   kernels.stream_ptr(x.device))
     return out
 
 
@@ -251,11 +244,6 @@ def row_gather_lerp_cuda(src_chw: torch.Tensor, x: torch.Tensor,
 # in its launch arguments); the rows wrapper splits longer row lists.
 MAX_DXS = 64
 MAX_ROWS = 64
-# gtt_row_gather_affine_rows(src, abc, db, out, dxs, E, dys, src_dys, R, K,
-# C, H, W, Ws, stream).
-AFFINE_ARGTYPES = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _affine_launch(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
@@ -286,18 +274,15 @@ def _affine_launch(src_chw: torch.Tensor, abc: torch.Tensor, dxs,
     out = torch.empty((R, K * E, C, H, Ws), dtype=torch.float32,
                       device=abc.device)
     dx_arr = (ctypes.c_int * E)(*(int(d) for d in dxs))
-    fn = _cuda_fn("rowgather_affine", "gtt_row_gather_affine_rows",
-                  AFFINE_ARGTYPES)
     for r0 in range(0, R, MAX_ROWS):
         n = min(MAX_ROWS, R - r0)
         dy_arr = (ctypes.c_float * n)(*(float(d) for d in dys[r0:r0 + n]))
         sdy_arr = (ctypes.c_int * n)(*(int(d) for d in src_dys[r0:r0 + n]))
-        rc = fn(kernels.ptr(src_chw), kernels.ptr(abc),
-                kernels.ptr(disp_bounds), kernels.ptr(out[r0:r0 + n]),
-                dx_arr, E, dy_arr, sdy_arr, n, K, C, H, W, Ws,
-                kernels.stream_ptr(abc.device))
-        kernels.check(rc, "row_gather_affine")
-        kernels.counts["row_gather_affine"] += 1
+        kernels.launch("row_gather_affine", "gtt_row_gather_affine_rows",
+                       kernels.ptr(src_chw), kernels.ptr(abc),
+                       kernels.ptr(disp_bounds), kernels.ptr(out[r0:r0 + n]),
+                       dx_arr, E, dy_arr, sdy_arr, n, K, C, H, W, Ws,
+                       kernels.stream_ptr(abc.device))
         kernels.bytes_moved["row_gather_affine"] += 4 * (
             3 * K * H * Ws + n * K * E * C * H * Ws + C * H * W)
     return out
@@ -335,22 +320,7 @@ def row_gather_affine_rows_cuda(src_chw: torch.Tensor, abc: torch.Tensor,
 def row_gather_affine_staged_rows(R: int, C: int, W: int) -> int:
     """Source rows the affine kernel stages in a block's shared memory for R
     window rows of a [C, H, W] source; 0 when it reads global memory."""
-    fn = _cuda_fn("rowgather_affine", "gtt_row_gather_affine_staged_rows",
-                  [ctypes.c_int] * 3)
-    return fn(R, C, W)
-
-
-_FNS: dict = {}
-
-
-def _cuda_fn(lib: str, symbol: str, argtypes):
-    fn = _FNS.get(symbol)
-    if fn is None:
-        fn = getattr(kernels.library(lib), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    return fn
+    return kernels.entry("gtt_row_gather_affine_staged_rows")(R, C, W)
 
 
 def row_gather_batch(src_chw: torch.Tensor, x: torch.Tensor,

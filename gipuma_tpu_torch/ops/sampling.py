@@ -22,8 +22,6 @@ they compute this same function.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import kernels
@@ -72,15 +70,8 @@ def bilinear_sample_cuda(src_chw: torch.Tensor, x: torch.Tensor,
     C, H, W = src_chw.shape
     if H < 2 or W < 2:
         raise ValueError(f"bilinear_sample: source {H}x{W} is below 2x2")
-    for name, t in (("src", src_chw), ("x", x), ("y", y)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"bilinear_sample: {name} must be float32, got "
-                            f"{t.dtype}")
-        if t.device.type != "cuda" or t.device != src_chw.device:
-            raise ValueError(f"bilinear_sample: {name} must be on the "
-                             f"source's CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"bilinear_sample: {name} must be contiguous")
+    kernels.check_args("bilinear_sample",
+                       (("src", src_chw), ("x", x), ("y", y)))
     if x.shape != y.shape or x.dim() < 1:
         raise ValueError(f"bilinear_sample: x {tuple(x.shape)} and y "
                          f"{tuple(y.shape)} must match, with a batch axis")
@@ -88,26 +79,11 @@ def bilinear_sample_cuda(src_chw: torch.Tensor, x: torch.Tensor,
     N = x[0].numel() if B else 0
     out = torch.empty((B, C) + tuple(x.shape[1:]), dtype=torch.float32,
                       device=x.device)
-    rc = _cuda_fn()(kernels.ptr(src_chw), kernels.ptr(x), kernels.ptr(y),
-                    kernels.ptr(out), C, H, W, N, B,
-                    kernels.stream_ptr(x.device))
-    kernels.check(rc, "bilinear_sample")
-    kernels.counts["bilinear_sample"] += 1
+    kernels.launch("bilinear_sample", "gtt_bilinear_sample",
+                   kernels.ptr(src_chw), kernels.ptr(x), kernels.ptr(y),
+                   kernels.ptr(out), C, H, W, N, B,
+                   kernels.stream_ptr(x.device))
     return out
-
-
-_FN = None
-
-
-def _cuda_fn():
-    global _FN
-    if _FN is None:
-        fn = kernels.library("sampling").gtt_bilinear_sample
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, cll, cll, vp]
-        fn.restype = ci
-        _FN = fn
-    return _FN
 
 
 def bilinear_sample(src_chw: torch.Tensor, x: torch.Tensor,

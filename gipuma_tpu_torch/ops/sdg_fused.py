@@ -212,35 +212,19 @@ def fused_sdg_cost_batch_cuda(ref_chw: torch.Tensor,
                          f"kernel's register buffer ({_MAXE[-1]})")
     inc = params.window_increment
     out = torch.empty((K, hr, wr), dtype=torch.float32, device=dev)
-    fn = _cuda_fn()
     f = ctypes.c_float
-    rc = fn(kernels.ptr(ref_chw), kernels.ptr(src_packed),
-            kernels.ptr(abc_k), kernels.ptr(disp_bounds),
-            kernels.ptr(hw_valid), kernels.ptr(tile_ok), kernels.ptr(out),
-            C, maxe, K, hr, wr, tm_w, T, E, len(xs_off),
-            params.box_vrad, params.box_hrad, inc,
-            int(bool(params.sdg_onesided_edges)),
-            f(float(params.alpha)), f(1.0 - float(params.alpha)),
-            f(-(1.0 / float(params.gamma)) / C), f(1.0 / C),
-            f(float(params.tau_color)), f(float(params.tau_gradient)),
-            f((0.0625 / inc) / C), kernels.stream_ptr(dev))
-    kernels.check(rc, "sdg_fused_cost")
-    kernels.counts["sdg_fused_cost"] += 1
+    kernels.launch(
+        "sdg_fused_cost", "gtt_sdg_fused_cost", kernels.ptr(ref_chw),
+        kernels.ptr(src_packed), kernels.ptr(abc_k), kernels.ptr(disp_bounds),
+        kernels.ptr(hw_valid), kernels.ptr(tile_ok), kernels.ptr(out),
+        C, maxe, K, hr, wr, tm_w, T, E, len(xs_off),
+        params.box_vrad, params.box_hrad, inc,
+        int(bool(params.sdg_onesided_edges)),
+        f(float(params.alpha)), f(1.0 - float(params.alpha)),
+        f(-(1.0 / float(params.gamma)) / C), f(1.0 / C),
+        f(float(params.tau_color)), f(float(params.tau_gradient)),
+        f((0.0625 / inc) / C), kernels.stream_ptr(dev))
     return out
-
-
-_FN = None
-
-
-def _cuda_fn():
-    global _FN
-    if _FN is None:
-        fn = kernels.library("sdg_fused").gtt_sdg_fused_cost
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci] * 13 + [cf] * 7 + [vp]
-        fn.restype = ci
-        _FN = fn
-    return _FN
 
 
 def fused_sdg_cost_batch(ref_chw: torch.Tensor, src_packed: torch.Tensor,

@@ -3,8 +3,8 @@
 Counterpart of ``gipuma_tpu/utils/profiling.py:1-53``.  The reference's
 instrumentation is cudaEvent timing around the kernel loop plus
 runtime-per-pixel printouts (gipuma.cu:1836-1952, main.cpp:1071-1084).
-Here: wall-clock phase timers that wait for the device, a
-megapixel-depthmaps/s meter, and torch.profiler trace capture.
+Here: wall-clock phase timers that wait for the device and a
+megapixel-depthmaps/s meter.
 """
 from __future__ import annotations
 
@@ -58,17 +58,3 @@ class PhaseTimer:
 def megapixels_per_second(num_pixels: int, seconds: float) -> float:
     return num_pixels / 1e6 / max(seconds, 1e-12)
 
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """torch.profiler trace of the host and, where CUDA is available, the
-    device, written to `log_dir` for TensorBoard (the JAX package's
-    jax.profiler trace)."""
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield

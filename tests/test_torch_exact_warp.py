@@ -1,8 +1,8 @@
 """gipuma_tpu_torch exact PM cost's warp prologue (csrc/exact_cost.cu,
 exact_warp_coords_kernel), checked on the CPU without building it: its
 wrapper refuses a CPU, non-f32, non-contiguous or misshapen argument by
-name before any build; its offset table is the sampled list; the
-kernel's arithmetic, done here in torch from the same inputs, is
+name before any build; its offset table is the sampled list; its plain
+version (the kernel's arithmetic in torch, from the same inputs) is
 bit-equal to warped_coords; and a CPU scene, PM or CENSUS, never takes
 the kernel.  The kernel itself against warped_coords runs on the card
 (tests/test_torch_kernels_gpu.py)."""
@@ -57,7 +57,7 @@ def no_build(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the wrapper reached the kernel build")
     monkeypatch.setattr(kernels, "library", refuse)
-    monkeypatch.setattr(tcost, "_WARP_FN", None)
+    monkeypatch.setattr(kernels, "_entries", {})
 
 
 @pytest.mark.parametrize("name,fault", [
@@ -97,28 +97,23 @@ def test_wrapper_rejects_a_wrong_shape(no_build, name, shape):
 def test_warp_table_is_the_sampled_list(box, inc):
     p = AlgorithmParams(box_hsize=box, box_vsize=box, window_increment=inc)
     offsets = tcost.window_offsets(p)
-    table = tcost._warp_table(tuple(map(tuple, offsets)),
-                              torch.device("cpu"))
+    table = tcost.offset_tables(offsets, torch.device("cpu"))[0]
     assert table.dtype == torch.float32 and table.shape == (len(offsets), 2)
     assert [tuple(map(int, r)) for r in table.tolist()] == \
         [tuple(o) for o in offsets]
-    assert tcost._warp_table(tuple(map(tuple, offsets)),
-                             torch.device("cpu")) is table
+    assert tcost.offset_tables(offsets, torch.device("cpu"))[0] is table
 
 
 def _kernel_arithmetic(sc, v, warp, table):
-    """The kernel's arithmetic in torch, term by term in its order, from
-    the inputs per_view_costs_batch hands it: [kc * O, H, W2] each."""
+    """The warp op's plain version from the inputs per_view_costs_batch
+    hands it: [kc * O, H, W2] each."""
     ar, ac0, ac1 = tcost.view_warp_terms(sc, v, warp.rays)
-    b = sc.b[v]
-    u = ar[None] - b * warp.mr[..., None]                 # [kc, H, W2, 3]
-    ax = ac0 - b * warp.mc0[..., None]
-    ay = ac1 - b * warp.mc1[..., None]
-    dx = table[:, 0].reshape(1, -1, 1, 1, 1)
-    dy = table[:, 1].reshape(1, -1, 1, 1, 1)
-    pos = (u[:, None] + dx * ax[:, None]) + dy * ay[:, None]
-    xw, yw = pos[..., 0] / pos[..., 2], pos[..., 1] / pos[..., 2]
-    return xw.flatten(0, 1), yw.flatten(0, 1)
+    xw = torch.full((warp.mr.shape[0] * table.shape[0],) + warp.mr.shape[1:],
+                    7.0)
+    yw = torch.full_like(xw, 7.0)
+    tcost.exact_warp_coords_plain(ar, ac0, ac1, sc.b[v], warp.mr, warp.mc0,
+                                  warp.mc1, table, xw, yw)
+    return xw, yw
 
 
 def _bits(t):
@@ -128,13 +123,13 @@ def _bits(t):
 @pytest.mark.parametrize("parity", [0, 1])
 @pytest.mark.parametrize("box,inc", WINDOWS)
 def test_kernel_arithmetic_is_warped_coords(box, inc, parity):
-    """The folding the kernel relies on (view terms A r, A c0, A c1 from
-    view_warp_terms; - b m.r etc. per candidate; the table's offsets) gives
-    warped_coords' bits, NaN and inf included (a planted d = 0)."""
+    """The folding the kernel and its plain version rely on (view terms A
+    r, A c0, A c1 from view_warp_terms; - b m.r etc. per candidate; the
+    table's offsets) gives warped_coords' bits, NaN and inf included (a
+    planted d = 0)."""
     sc, p = _scene(box, inc)
     offsets = tcost.window_offsets(p)
-    table = tcost._warp_table(tuple(map(tuple, offsets)),
-                              torch.device("cpu"))
+    table = tcost.offset_tables(offsets, torch.device("cpu"))[0]
     n, d = _planes(3, seed=box + parity, degenerate=True)
     warp = tcost._plane_terms(sc, parity, n, d)
     for v in range(sc.num_views):

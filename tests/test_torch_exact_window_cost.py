@@ -51,7 +51,7 @@ def test_wrapper_rejects_before_build(monkeypatch, name, fault):
     def no_build(*a, **k):
         raise AssertionError("the wrapper reached the kernel build")
     monkeypatch.setattr(kernels, "library", no_build)
-    monkeypatch.setattr(tcost, "_FN", None)
+    monkeypatch.setattr(kernels, "_entries", {})
     args = _args()
     t = args[name]
     if fault == "strided":

@@ -386,8 +386,8 @@ def _kernel_coords(sc, v, warp, offsets):
     yw = torch.full_like(xw, 7.0)
     ar, ac0, ac1 = tco.view_warp_terms(sc, v, warp.rays)
     tco.exact_warp_coords_cuda(ar, ac0, ac1, sc.b[v], warp.mr, warp.mc0,
-                               warp.mc1, tco._warp_table(
-                                   tuple(map(tuple, offsets)), xw.device),
+                               warp.mc1,
+                               tco.offset_tables(offsets, xw.device)[0],
                                xw, yw)
     return xw, yw
 
@@ -477,6 +477,36 @@ def test_exact_costs_equal_the_torch_warp_composition(cuda_device, box, inc,
                                    sc.ref_img.pc, p)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool((got[:3, 3, 5, 7] == MAXCOST).all())
+
+
+def test_exact_pm_run_launches_each_kernel_once_a_unit(cuda_device,
+                                                       monkeypatch):
+    """A PM run on a CUDA scene (the exact path, every candidate in one
+    chunk, then one candidate a chunk): each (view, chunk) unit launches
+    the warp kernel, the sampler and the window-sum kernel once each, and
+    the chunked run gives the same planes and costs."""
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.models import patchmatch as tpmm
+    job, _ = _ring(cuda_device, h=64, w=96, cost_path="exact")
+    out = []
+    for samples in (tco.MAX_SAMPLES, 1):
+        monkeypatch.setattr(tco, "MAX_SAMPLES", samples)
+        kernels.reset_counts()
+        with torch.no_grad():
+            st = tpmm.run_patchmatch(job.prep, job.params,
+                                     tpmm.make_generator(5, cuda_device),
+                                     tco.multiview_cost)
+        torch.cuda.synchronize()
+        n = kernels.counts
+        assert n["exact_warp_coords"] == n["bilinear_sample"] \
+            == n["exact_window_cost"] > 0
+        out.append((st, n["bilinear_sample"]))
+    (whole, units), (chunked, chunked_units) = out
+    assert chunked_units > units
+    assert torch.equal(chunked.planes.view(torch.int32),
+                       whole.planes.view(torch.int32))
+    assert torch.equal(chunked.cost.view(torch.int32),
+                       whole.cost.view(torch.int32))
 
 
 def _same(got, want):
