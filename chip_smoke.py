@@ -216,6 +216,10 @@ PATH_KERNELS = {"rect": ("permute2d", "sdg_fused_cost"),
                 "pyramid_scan": ("permute2d", "sdg_fused_cost"),
                 "exact_scan": ("bilinear_sample", "exact_window_cost",
                                "exact_warp_coords")}
+# The share of the sampler's launches that take a tile (csrc/sampling.cu):
+# every PM unit (B = candidates x 36 offsets), CENSUS's window but not its
+# centre sample (B = the candidates).
+SAMPLER_TILED_SHARE = {"exact": 1.0, "exact_scan": 1.0, "census_exact": 0.5}
 # level_dispatch="scan" paths -> the host-loop path each must equal.
 SCAN_PATHS = {"rect_scan": "rect", "pyramid_scan": "pyramid",
               "exact_scan": "exact"}
@@ -1540,6 +1544,216 @@ def exact_warp_lines(torch, card) -> dict:
     return lines
 
 
+def dino_sampler_unit(torch, xs, xp, v0: int = 0):
+    """The sampler's K=4 unit on the bench scene's exact job (scene xs,
+    parameters xp): the close propagation sweep's four candidates of
+    parity 0 from random-init planes, view v0's positions at every window
+    offset, [4 * 36, 480, 320], with the first and last 8 columns and rows
+    pushed 20 px outside the image.  Returns (source, x, y, offsets)."""
+    from gipuma_tpu_torch.models.patchmatch import init_state, make_generator
+    from gipuma_tpu_torch.ops import checkerboard as cb
+    from gipuma_tpu_torch.ops import cost as ec
+    device = xs.src.device
+
+    def zero_cost(s, p, par, n, d):
+        return torch.zeros(n.shape[:2], device=device)
+
+    with torch.no_grad():
+        st_x = init_state(xs, xp, make_generator(1, device),
+                          cost_fn=zero_cost)
+    eo = cb.PaddedEO.build(st_x.planes, 1, 3)
+    cand = torch.stack([eo.shifted(dy, dx, 0)
+                        for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1))])
+    offs = ec.window_offsets(xp)
+    sx, sy = ec.warped_coords(xs, v0, ec._plane_terms(
+        xs, 0, cand[..., :3], cand[..., 3]), offs)
+    xH, xW = xs.src.shape[-2:]
+    sx[:, :, :8] = -20.0                       # 20 px outside the image
+    sx[:, :, -8:] = xW - 1 + 20.0
+    sy[:, :8] = -20.0
+    sy[:, -8:] = xH - 1 + 20.0
+    return xs.src[v0], sx, sy, offs
+
+
+def clamped_share(torch, x, y, H: int, W: int) -> float:
+    """Share of sample positions the sampler clamps to the image's edge:
+    x outside [0, W-1] or y outside [0, H-1], or NaN."""
+    inside = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    return 1.0 - float(inside.float().mean())
+
+
+def smooth_sampler_field(torch, offs, H: int, W2: int, dev):
+    """Positions of the identity warp at every window offset, [O, H, W2]
+    each: pixel (h, 2 w2 + h % 2) of the half-grid plus (dx, dy), so
+    neighbouring pixels read neighbouring texels at every offset."""
+    dx = torch.tensor([o[0] for o in offs], dtype=torch.float32, device=dev)
+    dy = torch.tensor([o[1] for o in offs], dtype=torch.float32, device=dev)
+    h = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    w = torch.arange(W2, dtype=torch.float32, device=dev)[None]
+    x = (2 * w + h.remainder(2))[None] + dx[:, None, None]
+    y = h.expand(H, W2)[None] + dy[:, None, None]
+    return x.contiguous(), y.contiguous()
+
+
+# The sampler calls whose positions cell_sampler_fields keeps: the random
+# init's first call, the first call after the first iteration, the first
+# call of the last iteration (its close propagation sweep) and the run's
+# last call (the last iteration's last refinement round).
+FIELD_STAGES = ("init", "after_first", "last_close", "last")
+
+
+def cell_job(torch, workload: str = "dtu_fast.exact", seed: int = 7,
+             ref: int | None = None):
+    """A benchmark cell's prepared job on the card: the benchmark's own
+    scene (portbench/scene.py) and parameters, view `ref` (the cell's
+    first window view by default)."""
+    from gipuma_tpu_torch import pipeline
+    from portbench import core as pcore
+    from portbench import scene as pscene
+    dev = torch.device("cuda")
+    cell = pcore.load_cell(workload)
+    params = pcore.program_params(cell.config, cell.mix)
+    sc = pscene.make_scene(cell.config, seed, dev)
+    names = [f"view{i:03d}" for i in range(len(sc.images))]
+    ref = cell.config["window_views"][0] if ref is None else ref
+    return pipeline.prepare_job(sc.images, sc.Ps, params, names,
+                                ref_index=ref, device=dev)
+
+
+def cell_sampler_fields(torch, job, sampler=None):
+    """The sampler's units as a benchmark cell runs them (DTU's: 1 x 64
+    offsets x 1200 x 800 half-grid, C = 3): one PM run of `job`
+    (cell_job) under the profiler, the sampler (`sampler`, by default
+    the package's) recorded at each call with its stage (the iteration
+    and the sweep: init, close, far or refine) and its device time.
+    Returns (source [C, H, W], {FIELD_STAGES label: (x, y)},
+    [(iteration, sweep, ms)] per call)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gipuma_tpu_torch import pipeline
+    from gipuma_tpu_torch.models import patchmatch as tpmm
+    from gipuma_tpu_torch.ops import cost as ec
+    params = job.params
+    last_it = params.iterations - 1
+    where = {"it": -1, "sweep": "init"}
+    calls, kept = [], {}
+    orig = {"sample": ec.bilinear_sample, "iteration": tpmm.iteration,
+            "prop": tpmm.propagation_sweep, "refine": tpmm.refinement_sweep}
+
+    def sample(src, x, y):
+        it, sweep = where["it"], where["sweep"]
+        first = not calls or calls[-1][:2] != (it, sweep)
+        calls.append((it, sweep))
+        label = ("init" if it == -1 and len(calls) == 1 else
+                 "after_first" if it == 1 and len(calls) > 1
+                 and calls[-2][0] == 0 else
+                 "last_close" if it == last_it and first
+                 and sweep == "close" else None)
+        if label and label not in kept:
+            kept[label] = (x.clone(), y.clone())
+        kept["last"] = (x, y)
+        kept["src"] = src
+        return (sampler or orig["sample"])(src, x, y)
+
+    def iteration(state, *a, **k):
+        where["it"] += 1
+        return orig["iteration"](state, *a, **k)
+
+    def prop(state, scene, params, parity, offsets, *a, **k):
+        where["sweep"] = ("far" if tuple(offsets) == tpmm.FAR_OFFSETS
+                          else "close")
+        return orig["prop"](state, scene, params, parity, offsets, *a, **k)
+
+    def refine(*a, **k):
+        where["sweep"] = "refine"
+        return orig["refine"](*a, **k)
+
+    ec.bilinear_sample, tpmm.iteration = sample, iteration
+    tpmm.propagation_sweep, tpmm.refinement_sweep = prop, refine
+    try:
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) \
+                as prof:
+            pipeline.run_prepared_job(job)
+            torch.cuda.synchronize()
+    finally:
+        ec.bilinear_sample, tpmm.iteration = orig["sample"], orig["iteration"]
+        tpmm.propagation_sweep, tpmm.refinement_sweep = (orig["prop"],
+                                                         orig["refine"])
+    evs = sorted((ev.start_ns(), ev.duration_ns())
+                 for ev in prof.profiler.kineto_results.events()
+                 if str(ev.device_type()).endswith("CUDA")
+                 and "bilinear_sample_kernel" in ev.name())
+    src = kept.pop("src")
+    kept["last"] = tuple(t.clone() for t in kept["last"])
+    # The profiler drops a kernel event now and then; the stages' times
+    # are then not read (None).
+    per_call = ([(it, sw, d / 1e6) for (it, sw), (_, d) in zip(calls, evs)]
+                if len(evs) == len(calls) else
+                [(it, sw, None) for it, sw in calls])
+    return src, {k: kept[k] for k in FIELD_STAGES}, per_call
+
+
+def sampler_stage_ms(per_call) -> dict:
+    """{stage: [calls, device ms]} of cell_sampler_fields' calls: init,
+    then propagation and refinement of the first two iterations (early)
+    and of the rest (late); ms None where the events were not read."""
+    out = {}
+    for it, sweep, ms in per_call:
+        key = "init" if it < 0 else "%s_%s" % (
+            "early" if it < 2 else "late",
+            "refine" if sweep == "refine" else "prop")
+        n, t = out.get(key, (0, 0.0))
+        out[key] = (n + 1, None if ms is None or t is None else t + ms)
+    return {k: list(v) for k, v in out.items()}
+
+
+def sampler_field_lines(torch, card) -> dict:
+    """The sampler at DTU's unit (1 x 64 offsets x 1200 x 800, C = 3) on
+    the benchmark's own fields (cell_sampler_fields: the random init's
+    first call and the run's last call) and on the identity warp
+    (smooth_sampler_field), on every route, each held bit-equal to the
+    plain version, beside the bound (8 B of positions and 12 B of samples
+    a position, the source read once, at HBM rate); each field's clamped
+    share; and the view's sampler time by stage on the route the shape
+    picks."""
+    from gipuma_tpu_torch.ops import cost as ec
+    from gipuma_tpu_torch.ops.sampling import (SAMPLER_ROUTES,
+                                               bilinear_sample_on_route,
+                                               bilinear_sample_plain,
+                                               sampler_route)
+    job = cell_job(torch, "dtu_fast.exact")
+    src, fields, per_call = cell_sampler_fields(torch, job)
+    C, H, W = src.shape
+    cases = {"init": fields["init"], "last": fields["last"],
+             "smooth": smooth_sampler_field(
+                 torch, ec.window_offsets(job.params), H, W // 2,
+                 src.device)}
+    del fields, job
+    lines = {}
+    for label, (x, y) in cases.items():
+        want = bilinear_sample_plain(src, x, y)
+        ms = {}
+        for route in SAMPLER_ROUTES:
+            bit_equal(bilinear_sample_on_route(src, x, y, route), want,
+                      f"DTU unit, {label} field, route {route}",
+                      "bilinear_sample")
+            ms[route] = graph_ms(lambda: bilinear_sample_on_route(
+                src, x, y, route), reps=10)
+        del want
+        bound = (x.numel() * (8 + 4 * C) + 4 * src.numel()) / HBM_BPS * 1e3
+        lines[label] = {
+            "kernel": "bilinear_sample", "card": card,
+            "shape": f"src {tuple(src.shape)}, coords {tuple(x.shape)} "
+                     f"(DTU unit, {label} field)",
+            "clamped_share": clamped_share(torch, x, y, H, W),
+            "route": sampler_route(x.shape[0]), "ms_by_route": ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_share_by_route": {r: bound / t for r, t in ms.items()},
+            "bit_equal": True}
+        torch.cuda.empty_cache()
+    lines["init"]["view_sampler_ms_by_stage"] = sampler_stage_ms(per_call)
+    return lines
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}", 2)
@@ -1566,7 +1780,9 @@ def main() -> int:
             row_gather_lerp_cuda, row_gather_lerp_plain,
             row_gather_nearest_cuda, row_gather_nearest_plain)
         from gipuma_tpu_torch.ops.sampling import (bilinear_sample_cuda,
-                                                   bilinear_sample_plain)
+                                                   bilinear_sample_on_route,
+                                                   bilinear_sample_plain,
+                                                   sampler_route)
         from gipuma_tpu_torch.ops.sdg_fused import (
             fused_sdg_cost_batch_cuda, fused_sdg_cost_batch_plain)
         from gipuma_tpu_torch.pipeline import (compute_depthmap, prepare_job,
@@ -1756,23 +1972,8 @@ def main() -> int:
 
     log("kernel vs plain: bilinear_sample")
     xs, xp = jobs["exact"].prep, jobs["exact"].params
-    with torch.no_grad():
-        st_x = init_state(xs, xp, make_generator(1, device),
-                          cost_fn=zero_cost)
-    # The close propagation sweep's four candidates of parity 0: view 0's
-    # positions at every window offset, [4 * 36, 480, 320].
-    eo = cb.PaddedEO.build(st_x.planes, 1, 3)
-    cand = torch.stack([eo.shifted(dy, dx, 0)
-                        for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1))])
-    offs = ec.window_offsets(xp)
-    sx, sy = ec.warped_coords(xs, v0, ec._plane_terms(
-        xs, 0, cand[..., :3], cand[..., 3]), offs)
+    s_src, sx, sy, offs = dino_sampler_unit(torch, xs, xp, v0)
     xH, xW = xs.src.shape[-2:]
-    sx[:, :, :8] = -20.0                       # 20 px outside the image
-    sx[:, :, -8:] = xW - 1 + 20.0
-    sy[:, :8] = -20.0
-    sy[:, -8:] = xH - 1 + 20.0
-    s_src = xs.src[v0]
     want = bilinear_sample_plain(s_src, sx, sy)
     got = bilinear_sample_cuda(s_src, sx, sy)
     both_nan = torch.isnan(got) & torch.isnan(want)
@@ -1914,6 +2115,13 @@ def main() -> int:
         missing = [k for k in PATH_KERNELS[label] if launches[k] <= 0]
         if missing:
             fail(f"{label}: kernels of the path never launched: {missing}")
+        if label in SAMPLER_TILED_SHARE:
+            tiled = (launches["bilinear_sample_tiled"]
+                     / launches["bilinear_sample"])
+            log(f"  sampler launches on a tile: {tiled:.4f}")
+            if tiled != SAMPLER_TILED_SHARE[label]:
+                fail(f"{label}: {tiled} of the sampler's launches took a "
+                     f"tile, not {SAMPLER_TILED_SHARE[label]}")
         runs[label] = dict(med=med, e2e_s=e2e_s, launches=launches, res=res)
     res = runs["rect"]["res"]
     with tempfile.TemporaryDirectory() as td:
@@ -2250,9 +2458,13 @@ def main() -> int:
         s_in, grid, mode="bilinear", padding_mode="border",
         align_corners=True), reps=10)
     del grid
+    s_routes = {r: graph_ms(lambda: bilinear_sample_on_route(
+        s_src, sx, sy, r), reps=10) for r in (0, sampler_route(len(sx)))}
     s_line = {"kernel": "bilinear_sample", "card": card,
               "shape": f"src {tuple(s_src.shape)} f32, coords "
                        f"{tuple(sx.shape)} (K=4 x {len(offs)} offsets)",
+              "clamped_share": clamped_share(torch, sx, sy, xH, xW),
+              "route": sampler_route(len(sx)), "ms_by_route": s_routes,
               "ms": s_ms_k, "graph_ms": s_ms_k, "plain_ms": s_plain,
               "library_ms": s_lib, "bound_ms": s_bound, "bound_by": "bytes",
               "launches": launches["bilinear_sample"],
@@ -2274,6 +2486,9 @@ def main() -> int:
                                                       "exact_warp_coords")
         log(json.dumps(ln))
     w_line = w_lines["dtu_fast"]
+    f_lines = sampler_field_lines(torch, card)
+    for ln in f_lines.values():
+        log(json.dumps(ln))
 
     # The lerp gather in its three modes, at the shapes of the kernel phase.
     # Bound: each input read once (x, 4 B per position; the source, 4 B per
@@ -2408,7 +2623,11 @@ def main() -> int:
          "replaces": "gipuma_tpu/ops/pallas_sampling.py:61",
          "launches": launches["bilinear_sample"],
          "max_abs_err": max_err_sample, "ms": s_ms_k, "plain_ms": s_plain,
-         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib},
+         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib,
+         "ms_by_route": s_routes,
+         "dtu_unit": {k: {f: ln[f] for f in (
+             "clamped_share", "route", "ms_by_route", "bound_ms")}
+             for k, ln in f_lines.items()}},
         {"name": "exact_window_cost", "route": "cuda",
          "source": "gipuma_tpu_torch/csrc/exact_cost.cu",
          "replaces": "port-only: no Pallas counterpart; the JAX package's "

@@ -12,10 +12,11 @@ binds one once, ``check_args`` refuses a wrapper's tensor arguments before
 any build, and ``launch`` runs an entry, raises on its error and counts it.
 
 ``counts`` holds one plain integer per kernel: ``launch`` adds one
-exactly where a wrapper launches its kernel.  ``bytes_moved`` sums, per
-launch, the bytes a launch must move (each input read once, each output
-written once) for the kernels whose wrappers count them (the affine
-gather).
+exactly where a wrapper launches its kernel (and one to a route's own
+count: ``bilinear_sample_tiled``, the sampler's tiled launches).
+``bytes_moved`` sums, per launch, the bytes a launch must move (each
+input read once, each output written once) for the kernels whose
+wrappers count them (the affine gather).
 ``reset_counts`` sets both to 0.
 """
 from __future__ import annotations
@@ -80,7 +81,7 @@ ENTRIES = {
     "gtt_sdg_fused_cost": ("sdg_fused",
                            [_vp] * 7 + [_ci] * 13 + [_cf] * 7 + [_vp]),
     "gtt_bilinear_sample": ("sampling",
-                            [_vp] * 4 + [_ci] * 3 + [_cll] * 2 + [_vp]),
+                            [_vp] * 4 + [_ci] * 3 + [_cll] * 2 + [_ci, _vp]),
     "gtt_permute2d": ("permute2d", [_vp] * 5 + [_ci] * 6 + [_vp]),
     "gtt_exact_window_cost": ("exact_cost",
                               [_vp] * 7 + [_ci] * 11 + [_cf] * 6 + [_vp]),
@@ -89,7 +90,8 @@ ENTRIES = {
 
 counts = {"row_gather_nearest": 0, "sdg_fused_cost": 0,
           "bilinear_sample": 0, "row_gather_lerp": 0, "row_gather_affine": 0,
-          "permute2d": 0, "exact_window_cost": 0, "exact_warp_coords": 0}
+          "permute2d": 0, "exact_window_cost": 0, "exact_warp_coords": 0,
+          "bilinear_sample_tiled": 0}
 bytes_moved = {"row_gather_affine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -185,13 +187,16 @@ def entry(symbol: str):
     return fn
 
 
-def launch(what: str, symbol: str, *args) -> None:
+def launch(what: str, symbol: str, *args, also: str | None = None) -> None:
     """Run C entry `symbol` on `args`, raise if it returned a non-zero
-    cudaGetLastError(), and add one to counts[what]."""
+    cudaGetLastError(), and add one to counts[what] (and to counts[also],
+    a route's own count, where given)."""
     rc = entry(symbol)(*args)
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
     counts[what] += 1
+    if also is not None:
+        counts[also] += 1
 
 
 def check_args(what: str, named, ints=()) -> None:

@@ -13,8 +13,10 @@ with clamp-to-edge addressing (what CUDA texture fetches at unnormalized
 coordinates resolve to).  NaN coordinates give NaN samples, as jnp.clip
 does, so a degenerate plane still ends as MAXCOST downstream.
 
-On a CUDA tensor ``bilinear_sample`` launches ``csrc/sampling.cu``; on a
-CPU tensor it runs the plain torch version.  The JAX package's TPU gather
+On a CUDA tensor ``bilinear_sample`` launches ``csrc/sampling.cu``, on
+the route that ``sampler_route`` picks by the number of position rows B
+(one launch a call on any route); on a CPU tensor it runs the plain torch
+version.  The JAX package's TPU gather
 layouts (``pack_bilinear_taps`` / ``bilinear_sample_packed``,
 ``bilinear_sample_slicegather``, the Pallas block split ``split_blocks`` /
 ``pad_width_to_128``) exist for the TPU's gather costs and are not ported:
@@ -61,9 +63,38 @@ def bilinear_sample_plain(src_chw: torch.Tensor, x: torch.Tensor,
         (v10 * (1 - fx) + v11 * fx) * fy
 
 
+# The kernel's routes: 0, one thread a sample; 32 and 64, a block a tile
+# of that many rows b x 32 pixels (csrc/sampling.cu).
+SAMPLER_ROUTES = (0, 32, 64)
+
+
+def sampler_route(B: int) -> int:
+    """The kernel's route for B rows of positions: the 64-row tile where B
+    is a whole number of 64-offset windows (PM at box 15, increment 2),
+    the 32-row tile for any other B >= 32, one thread a sample below (the
+    tiles' lanes run across b, and would idle)."""
+    if B >= 64 and B % 64 == 0:
+        return 64
+    return 32 if B >= 32 else 0
+
+
 def bilinear_sample_cuda(src_chw: torch.Tensor, x: torch.Tensor,
                          y: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/sampling.cu: same contract as the plain version."""
+    """Launch csrc/sampling.cu on the route of x's rows (sampler_route):
+    same contract as the plain version."""
+    B = x.shape[0] if x.dim() else 0
+    return bilinear_sample_on_route(src_chw, x, y, sampler_route(B))
+
+
+def bilinear_sample_on_route(src_chw: torch.Tensor, x: torch.Tensor,
+                             y: torch.Tensor, route: int) -> torch.Tensor:
+    """bilinear_sample_cuda on a given route of SAMPLER_ROUTES, whatever
+    B; every route gives the same bits.  Counts the launch in
+    kernels.counts["bilinear_sample"], and a tiled one in
+    ["bilinear_sample_tiled"] too."""
+    if route not in SAMPLER_ROUTES:
+        raise ValueError(f"bilinear_sample: route {route} is not one of "
+                         f"{SAMPLER_ROUTES}")
     if src_chw.dim() != 3:
         raise ValueError(f"bilinear_sample: src must be [C, H, W], got "
                          f"{tuple(src_chw.shape)}")
@@ -81,8 +112,9 @@ def bilinear_sample_cuda(src_chw: torch.Tensor, x: torch.Tensor,
                       device=x.device)
     kernels.launch("bilinear_sample", "gtt_bilinear_sample",
                    kernels.ptr(src_chw), kernels.ptr(x), kernels.ptr(y),
-                   kernels.ptr(out), C, H, W, N, B,
-                   kernels.stream_ptr(x.device))
+                   kernels.ptr(out), C, H, W, N, B, route,
+                   kernels.stream_ptr(x.device),
+                   also="bilinear_sample_tiled" if route else None)
     return out
 
 

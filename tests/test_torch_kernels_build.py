@@ -55,5 +55,5 @@ def test_every_kernel_has_a_count():
     assert set(kernels.counts) == {
         "row_gather_nearest", "sdg_fused_cost", "bilinear_sample",
         "row_gather_lerp", "row_gather_affine", "permute2d",
-        "exact_window_cost", "exact_warp_coords"}
+        "exact_window_cost", "exact_warp_coords", "bilinear_sample_tiled"}
     assert all(v == 0 for v in kernels.counts.values())

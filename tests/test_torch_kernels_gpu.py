@@ -227,6 +227,79 @@ def test_sampler_kernel_matches_plain(cuda_device, C):
     assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
 
 
+def _sampler_field(g, B, kind, H=48, W=200, Hs=7, Ws=45):
+    """Positions x, y [B, Hs, Ws] (Hs * Ws = 315 pixels: no whole number
+    of 32-pixel tiles) at B window offsets laid out as the PM path lays
+    them out (dx-major, 8 rows a column).  "smooth": every pixel the
+    identity warp of its place (2 j + i % 2, 5 i) plus the offset, so
+    neighbouring pixels read neighbouring texels; "planes": every pixel
+    its own random affine window (centre up to 20 px outside the image,
+    scale and shear up to 3).  A NaN in the first and the last row."""
+    k = torch.arange(B)
+    dx, dy = (k // 8 % 8 * 2 - 7).float(), (k % 8 * 2 - 7).float()
+    if kind == "smooth":
+        i = torch.arange(Hs).float()[:, None]
+        cx = (2 * torch.arange(Ws).float()[None] + i.remainder(2))
+        cy = (5 * i).expand(Hs, Ws)
+        a, b, c, d = 1.0, 0.0, 0.0, 1.0
+    else:
+        cx = torch.rand((Hs, Ws), generator=g) * (W + 40) - 20
+        cy = torch.rand((Hs, Ws), generator=g) * (H + 40) - 20
+        a, b, c, d = (torch.rand((Hs, Ws), generator=g) * 6 - 3
+                      for _ in range(4))
+    x = cx + a * dx[:, None, None] + b * dy[:, None, None]
+    y = cy + c * dx[:, None, None] + d * dy[:, None, None]
+    x[0, 1, 2] = float("nan")
+    y[-1, -1, -1] = float("nan")
+    return x.contiguous(), y.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["smooth", "planes"])
+@pytest.mark.parametrize("C", [1, 3, 9])
+@pytest.mark.parametrize("B", [1, 31, 32, 36, 64, 120, 144])
+def test_sampler_routes_match_plain(cuda_device, B, C, kind):
+    """Every route of the kernel (one thread a sample, the 32- and 64-row
+    tiles) is bit-equal to the plain version, NaN for NaN, at any B (the
+    tiles' last rows ragged), over pixels that fill no whole tile, with
+    coordinates NaN and 20 px outside the image; the route the shape
+    picks too."""
+    g = torch.Generator().manual_seed(B * 10 + C)
+    src = (torch.rand((C, 48, 200), generator=g) * 255).to(cuda_device)
+    x, y = (t.to(cuda_device) for t in _sampler_field(g, B, kind))
+    want = tsm.bilinear_sample_plain(src, x, y)
+    assert torch.isnan(want[0, :, 1, 2]).all()
+    for route in tsm.SAMPLER_ROUTES:
+        assert _same(tsm.bilinear_sample_on_route(src, x, y, route), want)
+    assert _same(tsm.bilinear_sample_cuda(src, x, y), want)
+
+
+def test_sampler_tiled_count_follows_the_route_rule(cuda_device):
+    """kernels.counts["bilinear_sample_tiled"] counts exactly the calls
+    with B >= 32, one launch a call either way; CENSUS's centre sample (B
+    = the chunk's candidates) takes the one-thread-a-sample route and its
+    window (B = candidates x 120 offsets) a tile."""
+    from gipuma_tpu_torch import kernels
+    from gipuma_tpu_torch.config import MatchingAlgorithm
+    g = torch.Generator().manual_seed(17)
+    src = (torch.rand((3, 48, 200), generator=g) * 255).to(cuda_device)
+    x, y = (t.to(cuda_device) for t in _sampler_field(g, 144, "planes"))
+    Bs = (1, 31, 32, 36, 64, 120, 144)
+    kernels.reset_counts()
+    for B in Bs:
+        tsm.bilinear_sample_cuda(src, x[:B], y[:B])
+    assert kernels.counts["bilinear_sample"] == len(Bs)
+    assert kernels.counts["bilinear_sample_tiled"] == 5
+    sc, p, gt = _exact_scene(cuda_device, 1, 11, 2)
+    n, d = _exact_planes(sc, gt, 4, seed=3)
+    na, da = _half_planes(n, d, 0)
+    kernels.reset_counts()
+    tco.per_view_costs_batch(
+        sc, p.replace(algorithm=MatchingAlgorithm.CENSUS), 0, na, da)
+    torch.cuda.synchronize()
+    assert kernels.counts["bilinear_sample"] == 2 * sc.num_views
+    assert kernels.counts["bilinear_sample_tiled"] == sc.num_views
+
+
 def _exact_scene(dev, C, box, inc, h=48, w=64):
     """An exact-path scene on the card: a slanted noise-textured plane seen
     by 3 source views (C = 3: three distinct channels), padded to 4 views
@@ -500,6 +573,8 @@ def test_exact_pm_run_launches_each_kernel_once_a_unit(cuda_device,
         n = kernels.counts
         assert n["exact_warp_coords"] == n["bilinear_sample"] \
             == n["exact_window_cost"] > 0
+        # Every unit (B = candidates x 36 offsets) takes a tile.
+        assert n["bilinear_sample_tiled"] == n["bilinear_sample"]
         out.append((st, n["bilinear_sample"]))
     (whole, units), (chunked, chunked_units) = out
     assert chunked_units > units

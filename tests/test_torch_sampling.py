@@ -7,7 +7,9 @@
   apart by an ulp);
 * central_gradients bit-equal;
 * the dispatching bilinear_sample runs the plain version on a CPU tensor,
-  and the kernel's wrapper refuses a CPU tensor instead of falling back."""
+  and the kernel's wrapper refuses a CPU tensor instead of falling back;
+* the kernel's route rule by the number of position rows B, and the
+  refusal of a route the kernel does not have."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,3 +97,22 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         ts.bilinear_sample_cuda(src_t, torch.from_numpy(x)[None],
                                 torch.from_numpy(y)[None])
+
+
+@pytest.mark.parametrize("B,route", [(0, 0), (1, 0), (31, 0), (32, 32),
+                                     (36, 32), (63, 32), (64, 64), (120, 32),
+                                     (128, 64), (144, 32)])
+def test_sampler_route_rule(B, route):
+    """One thread a sample below 32 rows (CENSUS's centre sample); the
+    64-row tile where B is a whole number of 64-offset windows (box 15,
+    increment 2); the 32-row tile otherwise."""
+    assert ts.sampler_route(B) == route
+    assert route in ts.SAMPLER_ROUTES
+
+
+def test_sampler_refuses_an_unknown_route():
+    src, x, y = _inputs(4, 1, Hs=4, Ws=8)
+    src_t = torch.from_numpy(np.ascontiguousarray(np.moveaxis(src, -1, 0)))
+    with pytest.raises(ValueError, match="route"):
+        ts.bilinear_sample_on_route(src_t, torch.from_numpy(x)[None],
+                                    torch.from_numpy(y)[None], 48)
